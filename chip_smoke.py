@@ -59,7 +59,7 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     """Median device time of fn() over `iters` runs, by CUDA events."""
     import torch
 

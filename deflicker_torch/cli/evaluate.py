@@ -1,8 +1,5 @@
-"""Evaluation CLI: PSNR + E_warp (the paper's temporal-consistency metric)
-for a processed video.
-
-    python -m deflicker_torch.cli.evaluate --video_name X
-        [--target final] [--root data/test/] [--results_root results]
+"""Evaluation: PSNR + E_warp (the paper's temporal-consistency metric) of a
+processed video, as `run_pipeline` reports them.
 
 E_warp follows the reference's (dead-code) recipe — occlusion-masked mean
 squared warp error between consecutive frames using the cached flow
@@ -12,17 +9,21 @@ measured between the processed frames and the originals.
 
 from __future__ import annotations
 
-import argparse
-import json
 from pathlib import Path
 
 import numpy as np
 
 
 def compute_video_metrics(frames_dir: Path, processed_dir: Path,
-                          flow_dir: Path | None = None, device="cpu") -> dict:
+                          flow_dir: Path | None = None, device=None) -> dict:
+    """PSNR of `processed_dir` against `frames_dir` and E_warp of the
+    processed frames with the cached flow, computed on `device` (CUDA unless
+    the caller names another; raises without CUDA)."""
     from ..io.media import list_frames, read_image
     from ..metrics import psnr
+    from ..utils.device import resolve_device
+
+    device = resolve_device(device)
 
     orig_files = list_frames(frames_dir)
     proc_files = list_frames(processed_dir)
@@ -79,36 +80,3 @@ def compute_video_metrics(frames_dir: Path, processed_dir: Path,
         out["ewarp_x100"] = float(np.mean(ewarps) * 100.0)
     return out
 
-
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description="PSNR + E_warp evaluation")
-    p.add_argument("--gpu", default=None, type=int,
-                   help="CUDA device index (default: the CPU)")
-    p.add_argument("--video_name", required=True, type=str)
-    p.add_argument("--root", default="data/test/", type=str)
-    p.add_argument("--results_root", default="results", type=str)
-    p.add_argument("--target", default="final",
-                   choices=["final", "stage_1", "neural_filter", "input"],
-                   help="which output to evaluate (input = the original)")
-    args = p.parse_args(argv)
-
-    frames_dir = Path(args.root) / args.video_name
-    if args.target == "input":
-        processed = frames_dir
-    elif args.target == "stage_1":
-        processed = Path(args.results_root) / args.video_name / "stage_1" / "output"
-    elif args.target == "neural_filter":
-        processed = (Path(args.results_root) / args.video_name
-                     / "neural_filter" / "output")
-    else:
-        processed = Path(args.results_root) / args.video_name / "final" / "output"
-
-    device = "cpu" if args.gpu is None else f"cuda:{args.gpu}"
-    out = compute_video_metrics(frames_dir, processed, device=device)
-    out["target"] = args.target
-    print(json.dumps(out))
-    return 0
-
-
-if __name__ == "__main__":
-    raise SystemExit(main())

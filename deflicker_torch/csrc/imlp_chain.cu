@@ -679,8 +679,6 @@ int check_desc(const ChainDesc* d, int B) {
 
 extern "C" {
 
-size_t imlp_chain_smem_bytes(const ChainDesc* d) { return smem_layout(*d).bytes; }
-
 size_t imlp_chain_bwd_scratch_bytes(const ChainDesc* d, int B) {
   return scratch_layout(*d, B).bytes;
 }

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..ops.sampling import flow_warp
+from ..utils.device import resolve_device
 
 
 def _mag(v):
@@ -50,10 +51,11 @@ def warp_error(frame1: np.ndarray, frame2: np.ndarray,
 
 @torch.no_grad()
 def warp_error_video(frames1, frames2, fw_flows, bw_flows,
-                     device="cpu") -> np.ndarray:
-    """Per-pair warp errors of stacked consecutive pairs, on `device`:
-    frames (B, H, W, 3) in [0, 1], flows (B, H, W, 2).  Returns (B,)
-    float64."""
+                     device=None) -> np.ndarray:
+    """Per-pair warp errors of stacked consecutive pairs, on `device` (CUDA
+    unless the caller names another; raises without CUDA): frames
+    (B, H, W, 3) in [0, 1], flows (B, H, W, 2).  Returns (B,) float64."""
+    device = resolve_device(device)
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(device)
     f1, f2, fw, bw = t(frames1), t(frames2), t(fw_flows), t(bw_flows)
     warped = torch.stack([flow_warp(f2[k], fw[k]) for k in range(f1.shape[0])])

@@ -157,8 +157,6 @@ def _library():
     lib = load("imlp_chain")
     if not getattr(lib, "_deflicker_typed", False):
         P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-        lib.imlp_chain_smem_bytes.argtypes = [P]
-        lib.imlp_chain_smem_bytes.restype = S
         lib.imlp_chain_bwd_scratch_bytes.argtypes = [P, I]
         lib.imlp_chain_bwd_scratch_bytes.restype = S
         lib.imlp_chain_fwd.argtypes = [P, P, P, I, P]

@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -58,8 +59,10 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     """Called without a device on a machine with no CUDA, entry points raise
     instead of running on the CPU."""
     from deflicker_torch.cli import main as cli_main
+    from deflicker_torch.cli.evaluate import compute_video_metrics
     from deflicker_torch.cli.pipeline import run_pipeline
     from deflicker_torch.config import PipelineConfig
+    from deflicker_torch.metrics import warp_error_video
     from deflicker_torch.utils.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -69,6 +72,11 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         run_pipeline(PipelineConfig(video_frame_folder=str(tmp_path)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_main.main(["--video_frame_folder", str(tmp_path), "--gpu", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compute_video_metrics(tmp_path, tmp_path)
+    frames, flows = np.zeros((1, 4, 4, 3)), np.zeros((1, 4, 4, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        warp_error_video(frames, frames, flows, flows)
     assert resolve_device("cpu").type == "cpu"
 
 

@@ -112,6 +112,7 @@ def test_occlusion_and_warp_error(rng):
                                jewarp.warp_error(f1, f2, fw, bw), rtol=1e-5)
     stack = lambda a: np.stack([a, a[::-1].copy()])
     np.testing.assert_allclose(
-        tewarp.warp_error_video(stack(f1), stack(f2), stack(fw), stack(bw)),
+        tewarp.warp_error_video(stack(f1), stack(f2), stack(fw), stack(bw),
+                                device="cpu"),
         jewarp.warp_error_video(stack(f1), stack(f2), stack(fw), stack(bw)),
         rtol=1e-5)
