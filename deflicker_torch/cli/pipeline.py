@@ -2,9 +2,9 @@
 
 Stages call each other as functions, and every stage reads and writes the
 reference's filesystem artifacts, so each stays independently runnable and
-idempotent.  This slice of the port runs the single-atlas path on one
-device; the dual atlas (`--class_name`), the chunked long-video fit and RAFT
-flow are later slices and raise NotImplementedError.
+idempotent.  The port runs the single-atlas path on one device, with RAFT
+flow when a RAFT checkpoint is on disk; the dual atlas (`--class_name`) and
+the chunked long-video fit are later slices and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 from ..atlas import (build_specs, evaluate_and_save, fit_atlas, init_models,
                      load_video_data, pretrain_mapping, save_mask_flow_videos)
 from ..config import AtlasConfig, PipelineConfig, load_atlas_config
-from ..flow import FarnebackFlow, preprocess_optical_flow
+from ..flow import FarnebackFlow, RAFTFlow, preprocess_optical_flow
 from ..io.media import list_frames, read_image, video_to_frames
 from ..utils.checkpoint import load_checkpoint
 from ..utils.convert import atlas_params_from_jax
@@ -52,16 +52,13 @@ def prepare_frames(cfg: PipelineConfig) -> Path:
     return frames_dir
 
 
-def make_flow_provider(cfg: PipelineConfig):
-    """Farneback flow when no RAFT checkpoint is on disk.  With a RAFT
-    checkpoint the JAX package would run RAFT; the port refuses rather than
-    compute different flow."""
+def make_flow_provider(cfg: PipelineConfig, device=None):
+    """RAFT on `device` when its checkpoint is on disk (the torch `.pth` or
+    the JAX package's converted file), else Farneback on the host."""
     ckpt = Path(cfg.ckpt_raft)
     for candidate in (ckpt, ckpt.with_suffix(".pth")):
         if candidate.exists():
-            raise NotImplementedError(
-                f"RAFT checkpoint {candidate} found: RAFT flow and its "
-                "correlation kernel are slice 2 of the port (see ROADMAP.md)")
+            return RAFTFlow(candidate, device=device)
     print(f"[deflicker_torch] RAFT checkpoint {ckpt} not found — "
           "falling back to Farneback flow (reduced quality)")
     return FarnebackFlow()
@@ -106,7 +103,7 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
     device = torch.device(device)
     t0 = time.time()
     if flow_provider is None:
-        flow_provider = make_flow_provider(cfg)
+        flow_provider = make_flow_provider(cfg, device)
     preprocess_optical_flow(frames_dir, flow_provider,
                             max_long_edge=cfg.max_long_edge)
     t_flow = time.time() - t0

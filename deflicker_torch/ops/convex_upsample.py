@@ -1,9 +1,29 @@
-"""Resize ops shared with stage 2.  RAFT's `convex_upsample_flow` and
-`upflow8` belong to the RAFT slice and are not ported yet."""
+"""RAFT's mask-weighted convex flow upsampling, and the align-corners
+resize shared with stage 2 (NHWC)."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+
+def convex_upsample_flow(flow: torch.Tensor, mask: torch.Tensor,
+                         factor: int = 8) -> torch.Tensor:
+    """Upsample (N, H, W, 2) flow by `factor`: each fine pixel is a
+    softmax-weighted combination of the 3x3 coarse neighbourhood of its
+    parent cell (reference: src/models/stage_1/core/raft.py:76-87).
+
+    mask: (N, H, W, 9 * factor * factor) logits laid out as (9, factor,
+    factor) per coarse cell; the 9 neighbours run row-major over (dy, dx),
+    zero-padded at the border, as `F.unfold` orders them."""
+    N, H, W, _ = flow.shape
+    r = factor
+    m = torch.softmax(mask.reshape(N, H, W, 9, r, r), dim=3)
+    padded = F.pad(flow * factor, (0, 0, 1, 1, 1, 1))
+    nb = torch.stack([padded[:, dy:dy + H, dx:dx + W, :]
+                      for dy in (0, 1, 2) for dx in (0, 1, 2)], dim=3)
+    up = torch.einsum("nhwkab,nhwkc->nhwabc", m, nb)     # (N, H, W, r, r, 2)
+    return up.permute(0, 1, 3, 2, 4, 5).reshape(N, H * r, W * r, 2)
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int

@@ -1,14 +1,17 @@
-"""The chain kernels on the card against their plain twins.  Imports no JAX,
+"""The CUDA kernels on the card against their plain twins.  Imports no JAX,
 so it also runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 Every test skips without a CUDA device (a CUDA kernel has no CPU mode)."""
 
+import numpy as np
 import pytest
 import torch
 
 from deflicker_torch.models import imlp as timlp
+from deflicker_torch.models import raft as traft
+from deflicker_torch.ops.cuda import corr_kernel as C
 from deflicker_torch.ops.cuda import imlp_kernel as K
 
 torch.set_num_threads(2)
@@ -117,3 +120,98 @@ def test_wrapper_rejects_bad_operands(cuda_device):
     wb = [w.to(torch.bfloat16).contiguous() for w in ws]
     with pytest.raises(ValueError, match="contiguous"):
         K.imlp_chain_fwd_cuda(x.t().contiguous().t(), wb, bs, ())
+
+
+# ---------------------------------------------------------------------------
+# correlation-window lookup
+# ---------------------------------------------------------------------------
+
+# (B, H, W, D, spread): the flow engine's width at a smaller batch, windows
+# far outside the level, the ragged case with an empty level, other widths
+CORR_CASES = {
+    "engine-54x96": (2, 54, 96, 256, 3.0),
+    "far-out": (2, 54, 96, 256, 40.0),
+    "ragged-7x9": (1, 7, 9, 32, 2.0),
+    "d64-12x20": (2, 12, 20, 64, 5.0),
+    "d128-13x27": (1, 13, 27, 128, 5.0),
+}
+
+
+def _corr_case(name, device):
+    B, H, W, D, spread = CORR_CASES[name]
+    rng = np.random.default_rng(0)
+    f1 = torch.from_numpy(rng.normal(size=(B, H, W, D)).astype(np.float32))
+    f2 = torch.from_numpy(rng.normal(size=(B, H, W, D)).astype(np.float32))
+    ys, xs = np.meshgrid(np.arange(H, dtype=np.float32),
+                         np.arange(W, dtype=np.float32), indexing="ij")
+    coords = np.stack([xs, ys], -1)[None].repeat(B, 0) + rng.uniform(
+        -spread, spread, (B, H, W, 2)).astype(np.float32)
+    pyr = [lvl.to(torch.bfloat16).contiguous().to(device)
+           for lvl in traft.build_fmap_pyramid(f2)]
+    return f1.to(device), pyr, torch.from_numpy(coords).to(device)
+
+
+@pytest.mark.parametrize("name", list(CORR_CASES))
+def test_corr_kernel_matches_plain(name, cuda_device):
+    """Kernel vs plain twin on the same bf16-stored pyramid: both multiply
+    the same rounded f2 by f32 f1 and differ only in the order of f32 sums,
+    so relative Frobenius 1e-4 and max abs 1e-3 of the largest value."""
+    f1, pyr, coords = _corr_case(name, cuda_device)
+    C.reset_launches()
+    got = C.corr_lookup_cuda(f1, pyr, coords)
+    torch.cuda.synchronize()
+    assert C.launches == {"lookup": 1}
+    want = C.corr_lookup_plain(f1, pyr, coords)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert _rel(got, want) < 1e-4
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+    if name == "far-out":
+        assert float((want == 0).float().mean()) > 0.2      # windows left the level
+    if name == "ragged-7x9":
+        assert not got[..., 3 * 81:].any()                  # the empty level
+
+
+def test_corr_kernel_survives_wild_coordinates(cuda_device):
+    """Untrained weights drive the flow anywhere: huge, infinite and NaN
+    coordinates are clamped inside the kernel and read zeros or finite
+    values, never out of bounds."""
+    f1, pyr, coords = _corr_case("d64-12x20", cuda_device)
+    coords = coords.clone()
+    coords[0, 0, 0] = torch.tensor([1e30, -1e30])
+    coords[0, 0, 1] = torch.tensor([float("inf"), float("-inf")])
+    coords[0, 0, 2] = torch.tensor([float("nan"), 3.0])
+    got = C.corr_lookup_cuda(f1, pyr, coords)
+    torch.cuda.synchronize()
+    assert not got[0, 0, :2].any()
+    assert torch.isfinite(got[0, 0, 3:]).all()
+
+
+def test_corr_wrapper_rejects_bad_operands(cuda_device):
+    f1, pyr, coords = _corr_case("d64-12x20", cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        C.corr_lookup_cuda(f1, [p.float() for p in pyr], coords)
+    with pytest.raises(ValueError, match="radius"):
+        C.corr_lookup_cuda(f1, pyr, coords, radius=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        C.corr_lookup_cuda(f1, pyr, coords.flip(-1).flip(-1).transpose(1, 2)
+                           .contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        C.corr_lookup_cuda(f1.cpu(), pyr, coords)
+
+
+def test_raft_flow_kernel_mode_matches_online_on_card(cuda_device):
+    """raft_flow on the card: `auto` and `kernel` launch the CUDA kernel once
+    per GRU iteration and stay within bf16 storage tolerance (0.05) of the
+    f32 online gather."""
+    model = traft.raft_init(torch.Generator().manual_seed(0), cuda_device)
+    rng = np.random.default_rng(1)
+    im1, im2 = (torch.from_numpy(rng.uniform(0, 255, (2, 64, 96, 3))
+                                 .astype(np.float32)).to(cuda_device)
+                for _ in range(2))
+    _, up_o = traft.raft_flow(model, im1, im2, iters=3, corr_mode="online")
+    for mode in ("kernel", "auto"):
+        C.reset_launches()
+        _, up_k = traft.raft_flow(model, im1, im2, iters=3, corr_mode=mode)
+        torch.cuda.synchronize()
+        assert C.launches == {"lookup": 3}
+        assert float((up_k - up_o).abs().max()) < 0.05

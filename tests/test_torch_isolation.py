@@ -58,10 +58,13 @@ def test_importing_the_port_loads_no_jax():
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     """Called without a device on a machine with no CUDA, entry points raise
     instead of running on the CPU."""
+    from deflicker_torch.cli import convert_weights
     from deflicker_torch.cli import main as cli_main
+    from deflicker_torch.cli import preprocess_flow
     from deflicker_torch.cli.evaluate import compute_video_metrics
     from deflicker_torch.cli.pipeline import run_pipeline
     from deflicker_torch.config import PipelineConfig
+    from deflicker_torch.flow import RAFTFlow
     from deflicker_torch.metrics import warp_error_video
     from deflicker_torch.utils.device import resolve_device
 
@@ -77,6 +80,18 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     frames, flows = np.zeros((1, 4, 4, 3)), np.zeros((1, 4, 4, 2))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         warp_error_video(frames, frames, flows, flows)
+    ckpt = tmp_path / "raft.pth"
+    ckpt.write_bytes(b"")                 # found, and never read: no device
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RAFTFlow()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RAFTFlow(ckpt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        preprocess_flow.main(["--vid_name", "vid", "--root", str(tmp_path),
+                              "--model", str(ckpt)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert_weights.main(["--kind", "raft", "--src", str(ckpt),
+                              "--dst", str(tmp_path / "out.ckpt")])
     assert resolve_device("cpu").type == "cpu"
 
 

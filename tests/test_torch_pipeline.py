@@ -67,21 +67,66 @@ def test_full_pipeline_artifacts(tiny_video_dir):
     assert final.shape == (48, 64, 3)          # exact crop of the /32 padding
 
 
-def test_refuses_what_the_slice_does_not_port(tiny_video_dir):
+def _random_raft_pth(path, seed=0):
+    """A seeded random RAFT saved as `raft-things.pth` is: reference keys
+    under the DataParallel `module.` prefix."""
+    from deflicker_torch.models.raft import raft_init
+
+    model = raft_init(torch.Generator().manual_seed(seed))
+    torch.save({f"module.{k}": v for k, v in model.state_dict().items()}, path)
+    return path
+
+
+def test_pipeline_takes_raft_when_its_checkpoint_exists(tiny_video_dir):
+    """With a RAFT checkpoint on disk `make_flow_provider` returns RAFTFlow
+    on the pipeline's device (found at the given path or beside it as
+    `.pth`), and stage 1 on the CPU writes RAFT's flow cache through the
+    batched branch before the fit.  Two GRU iterations keep it short."""
     from deflicker_torch.cli.pipeline import make_flow_provider, run_stage1
+    from deflicker_torch.config import AtlasConfig, PipelineConfig
+    from deflicker_torch.flow import FarnebackFlow, RAFTFlow
+
+    tmp, frames = tiny_video_dir
+    _random_raft_pth(tmp / "raft-things.pth")
+    cfg = PipelineConfig(video_frame_folder=str(frames), root=str(frames.parent),
+                         results_root=str(tmp / "results"), down=2,
+                         ckpt_raft=str(tmp / "raft-things.ckpt"))
+    provider = make_flow_provider(cfg, "cpu")
+    assert isinstance(provider, RAFTFlow)
+    assert provider.device.type == "cpu" and provider.iters == 20
+    assert provider.dtype == torch.bfloat16 and provider.corr_mode == "auto"
+    assert isinstance(make_flow_provider(
+        PipelineConfig(ckpt_raft=str(tmp / "none.pth")), "cpu"), FarnebackFlow)
+
+    provider.iters = 2
+    calls = []
+    compute_batch = provider.compute_batch
+    provider.compute_batch = lambda a, b: calls.append(len(a)) or compute_batch(a, b)
+    s1 = run_stage1(frames, cfg, dataclasses.replace(AtlasConfig(), **TINY),
+                    "cpu", flow_provider=provider)
+    assert calls == [8]                       # 4 pairs x 2 directions, one batch
+    flows = sorted((frames.parent / "vid_flow").glob("*.npy"))
+    assert len(flows) == 8
+    for f in flows:
+        flow = np.load(f)
+        assert flow.shape == (48, 64, 2) and flow.dtype == np.float32
+        assert np.isfinite(flow).all()
+    assert np.isfinite(s1["psnr"]) and s1["t_flow"] > 0
+
+
+def test_refuses_what_the_slice_does_not_port(tiny_video_dir):
+    from deflicker_torch.cli.pipeline import run_stage1
     from deflicker_torch.config import AtlasConfig, PipelineConfig
 
     tmp, frames = tiny_video_dir
-    raft = tmp / "raft-things.pth"
-    raft.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        make_flow_provider(PipelineConfig(ckpt_raft=str(raft)))
     cfg = PipelineConfig(video_frame_folder=str(frames), root=str(frames.parent),
                          results_root=str(tmp / "r"), down=2,
                          ckpt_raft=str(tmp / "missing.pth"))
     long_cfg = dataclasses.replace(AtlasConfig(), maximum_number_of_frames=3)
     with pytest.raises(NotImplementedError, match="not truncated"):
         run_stage1(frames, cfg, long_cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="dual-atlas"):
+        run_stage1(frames, cfg, AtlasConfig(), "cpu", dual=True)
 
 
 def test_stage1_fit_tracks_jax_from_same_init(tiny_video_dir):
