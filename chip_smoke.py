@@ -7,13 +7,16 @@ Phases (any failure exits non-zero before the result line):
      CUDA kernels from `deflicker_torch/csrc` (the IMLP chain and the
      correlation lookup, one nvcc each, started together) and times it;
   2. kernel vs plain: every kernel of the main paths at their shapes — the
-     fit's mapping1 query (90,000 rows x 6 layers of 256) and atlas query
-     (30,000 rows x 8 layers of 256 with skips) for the chain kernels; the
-     flow engine's lookup (8 x 54 x 96 pixels, D = 256, four levels, flows
-     of +-3 and +-40 px, and a ragged 7 x 9, D = 32 case) for the
-     correlation kernel — held against its plain PyTorch twin, then timed
-     beside its bound, the plain twin and, where one PyTorch call computes
-     the same function, that call;
+     single fit's mapping1 query (90,000 rows x 6 layers of 256) and atlas
+     query (30,000 rows x 8 layers of 256 with skips) for the remat pair of
+     chain kernels; the dual fit's four queries (mapping1 and the 4-layer
+     mapping2 at 90,000 rows, atlas at 60,000, the one-output alpha at
+     50,000) for the stash pair, whose gradients must also equal the remat
+     pair's bit for bit; the flow engine's lookup (8 x 54 x 96 pixels,
+     D = 256, four levels, flows of +-3 and +-40 px, and a ragged 7 x 9,
+     D = 32 case) for the correlation kernel — held against its plain
+     PyTorch twin, then timed beside its bound, the plain twin and, where
+     one PyTorch call computes the same function, that call;
   3. the pipeline with Farneback flow: `deflicker_torch.cli.pipeline
      .run_pipeline` on a procedural flickering clip of 80 frames at 432x768,
      at the default AtlasConfig widths and batch with the shipped stage-2
@@ -28,7 +31,19 @@ Phases (any failure exits non-zero before the result line):
      cut deeper.  Counters zeroed before, read after; flow files, artifacts
      and metrics checked for shape and finiteness (untrained weights give
      noise for flow, so no quality floor applies);
-  6. profile of one RAFT batch (8 x 432 x 768, 20 iterations).
+  6. profile of one RAFT batch (8 x 432 x 768, 20 iterations);
+  7. the dual-atlas pipeline: `run_pipeline` with `class_name` set on a
+     second procedural clip (a textured disc moving over a moving
+     background, per-frame gain flicker) whose `_seg` masks are on disk and
+     are picked up by `preprocess_masks`; four networks at the default
+     widths, batch 10,000, fit at 432x768 (the dual default, down = 1),
+     DEFLICKER_IMLP_STASH=1, so every chain call of the fit goes through
+     the stash pair: its counters must read 4 x steps each and the remat
+     pair's 0.  The schedule is scaled so that both loss graphs a default
+     run reaches execute; loss terms, metrics, textures and alpha maps are
+     checked, and alpha must have begun to follow the mask;
+  8. profile of the dual fit step, with the stash pair and with the remat
+     pair, same seeds.
 The second-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -68,6 +83,8 @@ TOL_CORR_ABS = 1e-3         # max abs, as a share of max |plain|
 
 ITERS = 500                 # fit steps (the default config runs 10,001)
 ITERS_RAFT_RUN = 100        # fit steps of the second pipeline run (RAFT flow)
+ITERS_DUAL = 300            # fit steps of the dual-atlas run
+PRETRAIN_DUAL = 50          # pretrain sweeps per mapping there (default 100)
 CLIP = (80, 432, 768)       # frames, height, width
 PAIR_BATCH = 4              # preprocess_optical_flow's default
 RAFT_ITERS = 20             # RAFTFlow's default
@@ -245,6 +262,162 @@ def phase_chain_kernels(device) -> dict:
     return rows
 
 
+def dual_kernel_shapes(device):
+    """The four chain calls of one dual fit step at the default AtlasConfig:
+    mapping1 and mapping2 at 9 coordinate variants x 10,000 samples, the
+    atlas at 6 (fg and bg quadrants x base / x+1 / y+1), alpha at 5."""
+    import torch
+
+    from deflicker_torch.atlas.engine import build_specs
+    from deflicker_torch.config import AtlasConfig
+    from deflicker_torch.models.imlp import imlp_init, positional_encoding
+
+    cfg = AtlasConfig()
+    specs = build_specs(cfg, dual=True)
+    gen = torch.Generator().manual_seed(1)
+    out = []
+    for name, spec, variants, need_dx in (
+            ("mapping1", specs.mapping1, 9, False),
+            ("mapping2", specs.mapping2, 9, False),
+            ("atlas", specs.atlas, 6, True),
+            ("alpha", specs.alpha, 5, False)):
+        rows = variants * cfg.samples_batch
+        params = imlp_init(spec, gen, device)
+        x = (torch.rand((rows, spec.input_dim), generator=gen) * 2 - 1).to(device)
+        if spec.use_positional:
+            x = positional_encoding(x, spec.positional_dim)
+        g = torch.randn((rows, spec.output_dim), generator=gen).to(device)
+        out.append(dict(name=name, x=x.contiguous(),
+                        ws=[p["w"].detach() for p in params],
+                        bs=[p["b"].detach() for p in params], g=g,
+                        skips=tuple(spec.skip_layers), need_dx=need_dx))
+    return out
+
+
+def stash_counts(case, kind: str):
+    """(flops, bytes) of the stash pair at this shape.  Forward: the chain's
+    products; x, weights and biases read, the output and the bf16 stash
+    (B x the widths of layers 0..n-2) written.  Backward: dW of every layer
+    and the input gradients through the kept rows, no recompute; x, weights,
+    g and the stash read, the gradients (and dx) written."""
+    B, E = case["x"].shape
+    ws = case["ws"]
+    macs = [w.shape[0] * w.shape[1] for w in ws]
+    w_bytes = sum(2 * m for m in macs) + sum(4 * b.numel() for b in case["bs"])
+    O = ws[-1].shape[1]
+    stash = 2.0 * B * sum(w.shape[1] for w in ws[:-1])
+    if kind == "fwd":
+        return 2.0 * B * sum(macs), 4.0 * B * E + w_bytes + 4.0 * B * O + stash
+    flops = 2.0 * B * sum(macs)
+    for i in range(len(ws) - 1, -1, -1):
+        if i == 0 and not case["need_dx"]:
+            continue
+        kept = E if i == 0 else ws[i - 1].shape[1]
+        flops += 2.0 * B * kept * ws[i].shape[1]
+    grads = 4 * sum(macs) + 4 * sum(b.numel() for b in case["bs"])
+    dx = 4.0 * B * E if case["need_dx"] else 0.0
+    return flops, 4.0 * B * E + w_bytes + 4.0 * B * O + stash + grads + dx
+
+
+def library_stash_chain(case, kind: str):
+    """The same bf16 `torch.matmul` chain with autograd on, whose forward
+    saves its activations as the stash forward does; its backward alone
+    (`torch.autograd.grad` on the kept graph) stands beside the stash
+    backward.  The port never calls it."""
+    import torch
+
+    xb = case["x"].to(torch.bfloat16).requires_grad_(case["need_dx"])
+    wr = [w.to(torch.bfloat16).requires_grad_() for w in case["ws"]]
+    bb = [b.to(torch.bfloat16) for b in case["bs"]]
+    gb = case["g"].to(torch.bfloat16)
+
+    def fwd():
+        h = xb
+        for i, (w, b) in enumerate(zip(wr, bb)):
+            if i > 0:
+                h = torch.relu(h)
+            if i in case["skips"]:
+                h = torch.cat([h, xb.detach()], dim=-1)
+            h = torch.matmul(h, w) + b
+        return h
+
+    if kind == "fwd":
+        return fwd
+    out = fwd()
+    wanted = wr + ([xb] if case["need_dx"] else [])
+    return lambda: torch.autograd.grad(out, wanted, gb, retain_graph=True)
+
+
+def phase_stash_kernels(device) -> dict:
+    """The stash pair at the dual fit's four shapes: against the plain twins
+    (the tolerances of the remat pair), bit-equal to the remat pair, then
+    timed beside its bound, the plain twins and the library chain."""
+    import torch
+
+    from deflicker_torch.ops.cuda import imlp_kernel as K
+
+    rows = {"fwd_stash": [], "bwd_stash": []}
+    for case in dual_kernel_shapes(device):
+        x, ws, bs, g, sk = case["x"], case["ws"], case["bs"], case["g"], case["skips"]
+        wb = [w.to(torch.bfloat16).contiguous() for w in ws]
+        need_dx, name, B = case["need_dx"], case["name"], x.shape[0]
+
+        y, stash = K.imlp_chain_fwd_stash_cuda(x, wb, bs, sk)
+        torch.cuda.synchronize()
+        y_p, stash_p = K.imlp_chain_fwd_stash_plain(x, ws, bs, sk)
+        views = K.stash_views(stash, wb, B)
+        pairs_f = [(y, y_p)] + list(zip(views, stash_p))
+        err_f = max(rel_err(a, b) for a, b in pairs_f)
+        abs_f = max(abs_err(a, b) for a, b in pairs_f)
+        if not (err_f <= TOL_FWD) or not torch.equal(
+                y, K.imlp_chain_fwd_cuda(x, wb, bs, sk)):
+            raise AssertionError(f"fwd_stash {name}: rel err {err_f} > {TOL_FWD} "
+                                 "or output differs from the remat forward")
+
+        dx, dW, db = K.imlp_chain_bwd_stash_cuda(x, wb, bs, sk, stash, g, need_dx)
+        dx_r, dW_r, db_r = K.imlp_chain_bwd_cuda(x, wb, bs, sk, g, need_dx)
+        torch.cuda.synchronize()
+        if (dx is None) != (not need_dx):
+            raise AssertionError("dx computed though not needed, or missing")
+        same = all(torch.equal(a, b) for a, b in zip(dW + db, dW_r + db_r))
+        if need_dx:
+            same = same and torch.equal(dx, dx_r)
+        if not same:
+            raise AssertionError(f"bwd_stash {name}: gradients are not bit-equal "
+                                 "to the remat backward's")
+        dx_p, dW_p, db_p = K.imlp_chain_bwd_stash_plain(x, ws, bs, sk, stash_p, g,
+                                                        need_dx)
+        pairs_b = list(zip(dW + db, dW_p + db_p)) + ([(dx, dx_p)] if need_dx else [])
+        errs = [rel_err(a, b) for a, b in pairs_b]
+        err_b, abs_b = max(errs), max(abs_err(a, b) for a, b in pairs_b)
+        if not (err_b <= TOL_BWD) or not all(math.isfinite(e) for e in errs):
+            raise AssertionError(f"bwd_stash {name}: rel err {err_b} > {TOL_BWD}")
+
+        for kind, key, err, aerr, run, plain in (
+                ("fwd", "fwd_stash", err_f, abs_f,
+                 lambda: K.imlp_chain_fwd_stash_cuda(x, wb, bs, sk),
+                 lambda: K.imlp_chain_fwd_stash_plain(x, ws, bs, sk)),
+                ("bwd", "bwd_stash", err_b, abs_b,
+                 lambda: K.imlp_chain_bwd_stash_cuda(x, wb, bs, sk, stash, g, need_dx),
+                 lambda: K.imlp_chain_bwd_stash_plain(x, ws, bs, sk, stash_p, g,
+                                                      need_dx))):
+            flops, nbytes = stash_counts(case, kind)
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+            remat = (lambda: K.imlp_chain_fwd_cuda(x, wb, bs, sk)) if kind == "fwd" \
+                else (lambda: K.imlp_chain_bwd_cuda(x, wb, bs, sk, g, need_dx))
+            rows[key].append(dict(
+                shape=name, rows=int(B), max_abs_err=aerr, rel_err=err,
+                bit_equal_to_remat=True,
+                ms=cuda_ms(run), remat_ms=cuda_ms(remat), plain_ms=cuda_ms(plain),
+                library_ms=cuda_ms(library_stash_chain(case, kind)),
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                stash_mbytes=stash.numel() * 2 / 1e6))
+            print(f"[kernel] {key} {name}: {rows[key][-1]}", flush=True)
+    return rows
+
+
 # (name, B, H, W, D, flow spread in 1/8-resolution pixels): the flow engine's
 # lookup for the clip (pair_batch 4 x 2 directions, 432x768 / 8) with windows
 # mostly inside the levels, the same with windows partly and wholly outside,
@@ -362,6 +535,41 @@ def make_clip(frames_dir: Path, seed: int = 0) -> None:
         cv2.imwrite(str(frames_dir / f"{t:05d}.png"), frame.astype(np.uint8))
 
 
+def make_dual_clip(frames_dir: Path, seed: int = 1) -> None:
+    """A textured disc (the foreground, drifting right and bobbing) over a
+    texture that pans at another speed, with a per-frame global gain (flicker); the
+    disc's mask goes to `<frames_dir>_seg/%05d.png` (uint8 0/255), where the
+    pipeline's mask step finds it."""
+    import cv2
+
+    T, H, W = CLIP
+    rng = np.random.default_rng(seed)
+
+    def texture(h, w, cell):
+        small = rng.uniform(30, 220, (h // cell + 1, w // cell + 1, 3))
+        return cv2.resize(small.astype(np.float32), (w, h),
+                          interpolation=cv2.INTER_CUBIC)
+
+    back = texture(H, W + 2 * T, 8)
+    fore = texture(2 * 90, 2 * 90, 5) * 0.6 + 90.0
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    gains = 1.0 + 0.15 * rng.uniform(-1, 1, T)
+    seg_dir = frames_dir.parent / f"{frames_dir.name}_seg"
+    frames_dir.mkdir(parents=True, exist_ok=True)
+    seg_dir.mkdir(parents=True, exist_ok=True)
+    for t in range(T):
+        frame = back[:, 2 * (T - t):2 * (T - t) + W].copy()
+        cx = 200.0 + 3.0 * t
+        cy = H / 2 + 40.0 * math.sin(t / 12.0)
+        inside = (yy - cy) ** 2 + (xx - cx) ** 2 < 90.0 ** 2
+        fy = np.clip(yy - cy + 90, 0, 179).astype(int)
+        fx = np.clip(xx - cx + 90, 0, 179).astype(int)
+        frame[inside] = fore[fy[inside], fx[inside]]
+        frame = np.clip(frame * gains[t], 0, 255)
+        cv2.imwrite(str(frames_dir / f"{t:05d}.png"), frame.astype(np.uint8))
+        cv2.imwrite(str(seg_dir / f"{t:05d}.png"), inside.astype(np.uint8) * 255)
+
+
 def reset_counters() -> None:
     from deflicker_torch.ops.cuda import corr_kernel, imlp_kernel
 
@@ -376,10 +584,14 @@ def read_counters() -> dict:
 
 
 def run_pipeline_checked(device, tag: str, frames: Path, results: Path,
-                         ckpt_raft: Path, iters: int, psnr_floor):
+                         ckpt_raft: Path, iters: int, psnr_floor,
+                         class_name=None, overrides=None):
     """`run_pipeline` at the default AtlasConfig widths and batch with the
     shipped stage-2 weights and `iters` fit steps; every launch counter is
-    zeroed just before and read just after; artifacts and metrics checked."""
+    zeroed just before and read just after; artifacts and metrics checked.
+    `class_name` runs the dual-atlas path (masks through the GrabCut
+    provider step, which reuses the `_seg` files on disk); `overrides` are
+    further AtlasConfig cuts."""
     import torch
 
     from deflicker_torch.cli.pipeline import run_pipeline
@@ -391,14 +603,19 @@ def run_pipeline_checked(device, tag: str, frames: Path, results: Path,
         results_root=str(results), ckpt_raft=str(ckpt_raft),
         ckpt_filter=str(ROOT / "pretrained_weights" / "neural_filter.ckpt"),
         ckpt_local=str(ROOT / "pretrained_weights" /
-                       "local_refinement_net.ckpt"))
-    atlas_cfg = dataclasses.replace(AtlasConfig(), iters_num=iters,
-                                    evaluate_every=iters - 1,
-                                    stop_global_rigidity=iters // 2)
-    print(f"[{tag}] {CLIP[0]} frames {CLIP[1]}x{CLIP[2]} (fit at /4), full "
-          f"default widths, batch {atlas_cfg.samples_batch}; cut: iters_num "
-          f"10001 -> {iters}, evaluate_every -> {iters - 1}, "
-          f"stop_global_rigidity -> {iters // 2}", flush=True)
+                       "local_refinement_net.ckpt"),
+        class_name=class_name,
+        mask_provider="grabcut" if class_name else None)
+    cuts = dict(iters_num=iters, evaluate_every=iters - 1,
+                stop_global_rigidity=iters // 2)
+    cuts.update(overrides or {})
+    default = AtlasConfig()
+    atlas_cfg = dataclasses.replace(default, **cuts)
+    print(f"[{tag}] {CLIP[0]} frames {CLIP[1]}x{CLIP[2]} (fit at "
+          f"/{1 if class_name else 4}), full default widths, batch "
+          f"{atlas_cfg.samples_batch}; cut: " + ", ".join(
+              f"{k} {getattr(default, k)} -> {v}" for k, v in cuts.items()),
+          flush=True)
 
     torch.cuda.reset_peak_memory_stats(device)
     reset_counters()
@@ -406,9 +623,11 @@ def run_pipeline_checked(device, tag: str, frames: Path, results: Path,
     launches = read_counters()
     peak = torch.cuda.max_memory_allocated(device)
 
-    if launches["fwd"] < 2 * iters or launches["bwd"] < 2 * iters:
+    pair = ("fwd_stash", "bwd_stash") if class_name else ("fwd", "bwd")
+    calls = (4 if class_name else 2) * iters       # networks x fit steps
+    if any(launches[k] != calls for k in pair):
         raise AssertionError(f"chain kernels launched {launches}, "
-                             f"need >= {2 * iters} each")
+                             f"need {calls} of {pair} each")
     for key in ("psnr", "final_psnr", "final_ewarp"):
         if key not in out or not math.isfinite(out[key]):
             raise AssertionError(f"{key} missing or not finite: {out.get(key)}")
@@ -501,6 +720,154 @@ def phase_raft_pipeline(device, frames: Path) -> dict:
         "max_abs_flow_px": peak_flow, "corr_launches": launches["lookup"]}),
         flush=True)
     return launches
+
+
+def reckoned_stash_bytes(batch: int) -> dict:
+    """bf16 stash of one dual fit step, all four networks alive at once
+    between forward and backward: rows x the widths of layers 0..n-2."""
+    from deflicker_torch.atlas.engine import build_specs
+    from deflicker_torch.config import AtlasConfig
+
+    specs = build_specs(AtlasConfig(), dual=True)
+    out = {}
+    for name, variants in (("mapping1", 9), ("mapping2", 9), ("atlas", 6),
+                           ("alpha", 5)):
+        spec = getattr(specs, name)
+        out[name] = 2 * variants * batch * sum(
+            fan_out for _, fan_out in spec.layer_dims()[:-1])
+    return out
+
+
+def phase_dual_pipeline(device):
+    """The dual-atlas pipeline through `run_pipeline` with `class_name` set
+    and the stash pair selected by DEFLICKER_IMLP_STASH=1."""
+    import os
+
+    frames = WORK / "data_dual" / "clipdual"
+    make_dual_clip(frames)
+    seg = frames.parent / f"{frames.name}_seg"
+    stamps = {p.name: p.stat().st_mtime_ns for p in seg.glob("*.png")}
+    if len(stamps) != CLIP[0]:
+        raise AssertionError(f"{len(stamps)} mask files, want {CLIP[0]}")
+    # the default schedule (global rigidity for the first half, alpha
+    # bootstrapping up to the last step) scaled to the cut run, so both loss
+    # graphs a default run reaches execute; stopping the bootstrap earlier
+    # in so short a run lets alpha collapse to 0 everywhere
+    overrides = dict(stop_bootstrapping_iteration=ITERS_DUAL - 1,
+                     pretrain_iter_number=PRETRAIN_DUAL)
+    stash = reckoned_stash_bytes(10000)
+    print("[dual-pipeline] DEFLICKER_IMLP_STASH=1; stash per step reckoned "
+          f"{ {k: round(v / 1e6, 1) for k, v in stash.items()} } MB, "
+          f"{sum(stash.values()) / 1e6:.1f} MB in all", flush=True)
+    before = os.environ.get("DEFLICKER_IMLP_STASH")
+    os.environ["DEFLICKER_IMLP_STASH"] = "1"
+    try:
+        out, launches, atlas_cfg = run_pipeline_checked(
+            device, "dual-pipeline", frames, WORK / "results_dual",
+            WORK / "no-raft.pth", ITERS_DUAL, psnr_floor=10.0,
+            class_name="anything", overrides=overrides)
+    finally:
+        if before is None:
+            del os.environ["DEFLICKER_IMLP_STASH"]
+        else:
+            os.environ["DEFLICKER_IMLP_STASH"] = before
+    if launches["fwd"] or launches["bwd"] or launches["lookup"]:
+        raise AssertionError(f"the dual stash run launched other kernels: {launches}")
+    if out["res"] != (CLIP[1], CLIP[2]):
+        raise AssertionError(f"dual fit resolution {out['res']}")
+    if {p.name: p.stat().st_mtime_ns for p in seg.glob("*.png")} != stamps:
+        raise AssertionError("the mask step rewrote the masks on disk")
+
+    s1 = WORK / "results_dual" / frames.name / "stage_1"
+    seen = set()
+    for line in (s1 / "scalars.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        bad = [k for k, v in rec.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite loss terms {bad} at step {rec['step']}")
+        seen |= set(rec)
+    want = {"rgb", "gradient", "rigidity1", "rigidity2", "global_rigidity1",
+            "global_rigidity2", "flow1", "flow2", "sparsity", "alpha_flow",
+            "alpha_bootstrap", "total"}
+    if not want <= seen:
+        raise AssertionError(f"loss terms never logged: {sorted(want - seen)}")
+    from deflicker_torch.io.media import list_frames, read_image
+
+    for name in ("texture1.png", "texture2.png", "texture1_marked.png",
+                 "texture2_marked.png"):
+        tex = read_image(s1 / "texture" / name)
+        if tex.shape != (1000, 1000, 3) or not np.isfinite(tex).all():
+            raise AssertionError(f"{name}: shape {tex.shape}")
+    alphas = list_frames(s1 / "texture" / "alpha")
+    if len(alphas) != CLIP[0]:
+        raise AssertionError(f"{len(alphas)} alpha maps, want {CLIP[0]}")
+    a0 = read_image(alphas[0])
+    if a0.shape != (CLIP[1], CLIP[2], 3) or not (0.0 <= a0.min() <= a0.max() <= 1.0):
+        raise AssertionError(f"alpha map shape {a0.shape}")
+    m0 = read_image(list_frames(seg)[0])[..., 0] > 0.5
+    print(f"[dual-pipeline] loss terms {sorted(seen - {'step', 'time'})} finite; "
+          f"textures 1000x1000, {len(alphas)} alpha maps; alpha of frame 0 (8-bit): "
+          f"mean {float(a0[m0].mean()):.4f} inside the mask, "
+          f"{float(a0[~m0].mean()):.4f} outside, range {float(a0.min()):.4f}.."
+          f"{float(a0.max()):.4f}", flush=True)
+    if not float(a0[m0].mean()) > float(a0[~m0].mean()) + 0.05:
+        raise AssertionError("alpha does not follow the mask: the dual fit failed")
+    last = json.loads((s1 / "scalars.jsonl").read_text().splitlines()[-1])
+    print("[dual-pipeline] last chunk's mean loss terms: " + json.dumps(
+        {k: v for k, v in last.items() if k != "time"}), flush=True)
+    return launches, frames, atlas_cfg
+
+
+def phase_dual_profile(device, frames: Path, atlas_cfg, steps: int = 20) -> None:
+    """Where a dual fit step's time goes, with the stash pair and with the
+    remat pair: the same data, init and sample seeds for both; `steps` steps
+    timed plain, then under torch.profiler; peak device memory of each."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deflicker_torch.atlas import (build_specs, fit_atlas, init_models,
+                                       load_video_data)
+    from deflicker_torch.ops.cuda import imlp_kernel
+
+    T, H, W = CLIP
+    data = load_video_data(frames, H, W, atlas_cfg.maximum_number_of_frames,
+                           use_masks=True).with_packed(device)
+    cfg = dataclasses.replace(atlas_cfg, iters_num=steps, steps_per_call=steps,
+                              evaluate_every=10 ** 9, stop_global_rigidity=10 ** 9,
+                              stop_bootstrapping_iteration=10 ** 9)
+    specs = build_specs(cfg, dual=True)
+    before = os.environ.get("DEFLICKER_IMLP_STASH")
+    try:
+        for mode in ("stash", "remat", "remat", "stash"):
+            os.environ["DEFLICKER_IMLP_STASH"] = "1" if mode == "stash" else "0"
+            params = init_models(specs, torch.Generator().manual_seed(0), device)
+            gen = torch.Generator(device=device).manual_seed(0)
+            fit_atlas(params, specs, data, dataclasses.replace(cfg, iters_num=5), gen)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            imlp_kernel.reset_launches()
+            t0 = time.time()
+            fit_atlas(params, specs, data, cfg, gen)
+            torch.cuda.synchronize()
+            wall_plain = time.time() - t0
+            peak = torch.cuda.max_memory_allocated(device)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.time()
+                fit_atlas(params, specs, data, cfg, gen)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            print(f"[dual-profile-{mode}] launches {dict(imlp_kernel.launches)}, "
+                  f"peak memory {peak / 2 ** 30:.3f} GiB", flush=True)
+            report_profile(f"dual-profile-{mode}", "step", steps, wall_plain,
+                           wall, prof)
+    finally:
+        if before is None:
+            del os.environ["DEFLICKER_IMLP_STASH"]
+        else:
+            os.environ["DEFLICKER_IMLP_STASH"] = before
 
 
 def device_events(prof):
@@ -622,6 +989,7 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}")
 
     rows = phase_chain_kernels(device)
+    stash_rows = phase_stash_kernels(device)
     corr_rows = phase_corr_kernel(device)
     t1 = time.time()
     launches, frames, atlas_cfg = phase_pipeline(device)
@@ -631,17 +999,27 @@ def main() -> int:
     raft_launches = phase_raft_pipeline(device, frames)
     print(f"[raft-pipeline] wall {time.time() - t1:.1f} s", flush=True)
     phase_raft_profile(device, frames)
+    t1 = time.time()
+    dual_launches, dual_frames, dual_cfg = phase_dual_pipeline(device)
+    print(f"[dual-pipeline] wall {time.time() - t1:.1f} s", flush=True)
+    phase_dual_profile(device, dual_frames, dual_cfg)
 
     src = "deflicker_torch/csrc/imlp_chain.cu"
     replaces = {"fwd": "deflicker_tpu/ops/pallas/imlp_kernel.py:421",
-                "bwd": "deflicker_tpu/ops/pallas/imlp_kernel.py:470"}
+                "bwd": "deflicker_tpu/ops/pallas/imlp_kernel.py:470",
+                "fwd_stash": "deflicker_tpu/ops/pallas/imlp_kernel.py:514",
+                "bwd_stash": "deflicker_tpu/ops/pallas/imlp_kernel.py:547"}
     kernels = []
-    for kind in ("fwd", "bwd"):
-        r = rows[kind]
-        # one fit step's two calls (mapping1 + atlas) summed
+    for kind in ("fwd", "bwd", "fwd_stash", "bwd_stash"):
+        # one fit step's calls summed: mapping1 + atlas of the single fit for
+        # the remat pair (launches of the Farneback run), the four networks
+        # of the dual fit for the stash pair (launches of the dual run)
+        stashed = kind.endswith("_stash")
+        r = (stash_rows if stashed else rows)[kind]
         kernels.append({
             "name": f"imlp_chain_{kind}", "route": "cuda", "source": src,
-            "replaces": replaces[kind], "launches": launches[kind],
+            "replaces": replaces[kind],
+            "launches": (dual_launches if stashed else launches)[kind],
             "max_abs_err": max(x["max_abs_err"] for x in r),
             "ms": sum(x["ms"] for x in r),
             "plain_ms": sum(x["plain_ms"] for x in r),

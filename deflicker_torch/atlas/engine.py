@@ -1,4 +1,5 @@
-"""Stage-1 engine: per-video test-time fit of the neural atlas (single atlas).
+"""Stage-1 engine: per-video test-time fit of the neural layered atlas
+(single atlas, or the dual atlas with a foreground and a background layer).
 
 The JAX package's engine (deflicker_tpu/atlas/engine.py) in PyTorch:
 
@@ -12,23 +13,29 @@ The JAX package's engine (deflicker_tpu/atlas/engine.py) in PyTorch:
   * steps run in chunks of `steps_per_call`: the loss terms are averaged on
     the device and read back once per chunk, and the chunk boundaries fall
     on the schedule boundaries (global rigidity until
-    `stop_global_rigidity`) and the eval points, as in the JAX package.
+    `stop_global_rigidity`, alpha bootstrapping until
+    `stop_bootstrapping_iteration`) and the eval points, as in the JAX
+    package.
 
-The dual-atlas branches (mapping2, alpha, sparsity and bootstrap terms) are
-a later slice of the port.
+The dual fit queries four networks a step (mapping1, mapping2, atlas,
+alpha); `DEFLICKER_IMLP_STASH=1` sends each through the stash pair of chain
+kernels instead of the remat pair (bit-identical gradients).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from functools import partial
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import AtlasConfig
-from ..losses import (flow_loss, gradient_loss, rgb_loss, rigidity_loss,
-                      safe_norm)
+from ..losses import (alpha_bootstrap_loss, alpha_flow_loss, flow_loss,
+                      gradient_loss, rgb_loss, rigidity_loss, safe_norm,
+                      sparsity_loss)
 from ..models.imlp import IMLPSpec, imlp_apply, imlp_apply_fused, imlp_init
 from ..ops.coords import normalize_xyt
 from .data import VideoData
@@ -40,26 +47,35 @@ def select_imlp_apply(use_fused: bool = True, precision: str = "default"
                       ) -> Callable:
     """The IMLP forward of the fit: the fused bf16 chain kernel when
     `use_fused` (AtlasConfig.use_pallas_imlp) and precision == "default";
-    the plain fp32 `imlp_apply` otherwise ("highest" = reference numerics)."""
+    the plain fp32 `imlp_apply` otherwise ("highest" = reference numerics).
+    DEFLICKER_IMLP_STASH=1 (the JAX package's switch) picks the stash pair
+    of chain kernels: the backward reads an activation stash the forward
+    wrote instead of recomputing the forward."""
     if use_fused and precision == "default":
+        if os.environ.get("DEFLICKER_IMLP_STASH") == "1":
+            return partial(imlp_apply_fused, stash_bwd=True)
         return imlp_apply_fused
     return imlp_apply
 
 
 class AtlasSpecs(NamedTuple):
-    """Static IMLP architectures of a single-atlas fit (the dual atlas's
-    mapping2 and alpha networks are a later slice of the port)."""
+    """Static IMLP architectures for one fit.  mapping2 / alpha are None on
+    the single-atlas path (reference: alpha hardwired to 1,
+    src/stage1_neural_atlas.py:177)."""
 
     mapping1: IMLPSpec
     atlas: IMLPSpec
+    mapping2: Optional[IMLPSpec] = None
+    alpha: Optional[IMLPSpec] = None
+
+    @property
+    def dual(self) -> bool:
+        return self.mapping2 is not None
 
 
 def build_specs(cfg: AtlasConfig, dual: bool = False) -> AtlasSpecs:
     """IMLP architectures as the reference instantiates them
-    (src/stage1_neural_atlas.py:112-128)."""
-    if dual:
-        raise NotImplementedError("the dual-atlas fit is a later slice of the "
-                                  "port (see ROADMAP.md)")
+    (src/stage1_neural_atlas.py:112-128, src/stage1_neural_atlas_seg.py:127-161)."""
     mapping1 = IMLPSpec(
         input_dim=3, output_dim=2,
         hidden_dim=cfg.number_of_channels_mapping1,
@@ -72,15 +88,40 @@ def build_specs(cfg: AtlasConfig, dual: bool = False) -> AtlasSpecs:
         use_positional=True,
         positional_dim=cfg.positional_encoding_num_atlas,
         num_layers=cfg.number_of_layers_atlas, skip_layers=(4, 7))
-    return AtlasSpecs(mapping1, atlas)
+    if not dual:
+        return AtlasSpecs(mapping1, atlas)
+    mapping2 = IMLPSpec(
+        input_dim=3, output_dim=2,
+        hidden_dim=cfg.number_of_channels_mapping2,
+        use_positional=cfg.use_positional_encoding_mapping2,
+        positional_dim=cfg.number_of_positional_encoding_mapping2,
+        num_layers=cfg.number_of_layers_mapping2, skip_layers=())
+    alpha = IMLPSpec(
+        input_dim=3, output_dim=1,
+        hidden_dim=cfg.number_of_channels_alpha,
+        use_positional=True,
+        positional_dim=cfg.positional_encoding_num_alpha,
+        num_layers=cfg.number_of_layers_alpha, skip_layers=())
+    return AtlasSpecs(mapping1, atlas, mapping2, alpha)
 
 
 def init_models(specs: AtlasSpecs, generator: torch.Generator,
                 device="cpu") -> Params:
-    """Fresh parameters for every network of the fit (mapping1, then atlas,
-    drawn from one CPU generator)."""
-    return {"mapping1": imlp_init(specs.mapping1, generator, device),
-            "atlas": imlp_init(specs.atlas, generator, device)}
+    """Fresh parameters for every network of the fit (mapping1, atlas, then
+    on the dual path mapping2 and alpha, drawn in that order from one CPU
+    generator, so the single-atlas draws do not depend on `specs.dual`)."""
+    params = {"mapping1": imlp_init(specs.mapping1, generator, device),
+              "atlas": imlp_init(specs.atlas, generator, device)}
+    if specs.dual:
+        params["mapping2"] = imlp_init(specs.mapping2, generator, device)
+        params["alpha"] = imlp_init(specs.alpha, generator, device)
+    return params
+
+
+def _squash_alpha(raw: torch.Tensor) -> torch.Tensor:
+    """tanh output -> (0.001, 0.991): 0.5*(a+1)*0.99 + 0.001, the reference's
+    BCE-safe squash (src/stage1_neural_atlas_seg.py:224-228)."""
+    return 0.5 * (raw + 1.0) * 0.99 + 0.001
 
 
 def flat_params(params: Params) -> List[torch.Tensor]:
@@ -90,42 +131,52 @@ def flat_params(params: Params) -> List[torch.Tensor]:
 
 
 def make_loss_fn(specs: AtlasSpecs, cfg: AtlasConfig, data: VideoData,
-                 include_global: bool) -> Callable:
+                 include_global: bool, include_bootstrap: bool = False
+                 ) -> Callable:
     """The per-batch loss over sampled integer pixel coords (j, i, f):
     loss_fn(params, packed, j, i, f) -> (total, aux).  `packed` is the
     (T, H, W, 16) gather pack (VideoData.with_packed); `data` supplies only
-    the shapes.  One iteration of the reference loop
-    (src/stage1_neural_atlas.py:159-231) with all mapping queries fused into
-    one forward per network."""
+    the shapes.  One iteration of the reference loop (single:
+    src/stage1_neural_atlas.py:159-231; dual:
+    src/stage1_neural_atlas_seg.py:204-315) with all queries of a network
+    fused into one forward per network."""
     T, (H, W) = data.num_frames, data.res
     L = data.larger_dim
+    dual = specs.dual
     apply_mlp = select_imlp_apply(cfg.use_pallas_imlp, cfg.fit_precision)
     d = cfg.derivative_amount
-    gd = cfg.global_rigidity_derivative_amount_fg
+    gd_fg = cfg.global_rigidity_derivative_amount_fg
+    gd_bg = cfg.global_rigidity_derivative_amount_bg
 
-    # integer offsets of the coordinate variants the mapping is queried at:
+    # integer offsets of the coordinate variants a mapping is queried at:
     # 0 base, 1 x+1, 2 y+1 (gradient), 3 y-d, 4 x-d (rigidity), then
     # 5 fwd / 6 bwd flow matches, then 7 y-gd, 8 x-gd (global rigidity)
-    dj = [0, 1, 0, 0, -d] + ([0, -gd] if include_global else [])
-    di = [0, 0, 1, -d, 0] + ([-gd, 0] if include_global else [])
-    offsets: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+    offsets: Dict[Tuple[torch.device, int],
+                  Tuple[torch.Tensor, torch.Tensor]] = {}
 
-    def mapping_coords(j, i, f, ffwd, fbwd):
+    def mapping_coords(j, i, f, ffwd, fbwd, gd):
         """The 7 (9 with global rigidity) coordinate variants, stacked to
         (K, B, 3) in a handful of ops (the step is dispatch-bound)."""
-        if j.device not in offsets:
-            offsets[j.device] = tuple(
+        if (j.device, gd) not in offsets:
+            dj = [0, 1, 0, 0, -d] + ([0, -gd] if include_global else [])
+            di = [0, 0, 1, -d, 0] + ([-gd, 0] if include_global else [])
+            offsets[j.device, gd] = tuple(
                 torch.tensor(o, dtype=torch.float32, device=j.device)[:, None]
                 for o in (dj, di))
-        oj, oi = offsets[j.device]
+        oj, oi = offsets[j.device, gd]
         jf, i_f, ff = j.float(), i.float(), f.float()
         J = torch.cat([jf + oj[:5], (jf + ffwd[:, 0])[None],
                        (jf + fbwd[:, 0])[None], jf + oj[5:]])
         I = torch.cat([i_f + oi[:5], (i_f + ffwd[:, 1])[None],
                        (i_f + fbwd[:, 1])[None], i_f + oi[5:]])
         F = torch.cat([ff.expand(5, -1), (ff + 1.0)[None], (ff - 1.0)[None],
-                       ff.expand(len(dj) - 5, -1)])
+                       ff.expand(oj.shape[0] - 5, -1)])
         return normalize_xyt(J, I, F, L, T)
+
+    def run_mapping(layers, spec, coords):
+        K, B = coords.shape[0], coords.shape[1]
+        return apply_mlp(layers, coords.reshape(K * B, 3),
+                         spec).reshape(K, B, 2)
 
     def loss_fn(params: Params, packed: torch.Tensor, j: torch.Tensor,
                 i: torch.Tensor, f: torch.Tensor):
@@ -135,21 +186,44 @@ def make_loss_fn(specs: AtlasSpecs, cfg: AtlasConfig, data: VideoData,
         ffwd, fbwd = g[:, 9:11], g[:, 11:13]
         mfwd, mbwd = g[:, 13], g[:, 14]
 
-        coords = mapping_coords(j, i, f, ffwd, fbwd)
-        K = coords.shape[0]
-        uv1 = apply_mlp(params["mapping1"], coords.reshape(K * B, 3),
-                        specs.mapping1).reshape(K, B, 2)
+        coords1 = mapping_coords(j, i, f, ffwd, fbwd, gd_fg)
+        uv1 = run_mapping(params["mapping1"], specs.mapping1, coords1)
 
-        # atlas queries at base / x+1 / y+1 in the fg quadrant uv*0.5+0.5
+        # atlas queries at base / x+1 / y+1: fg quadrant uv*0.5+0.5, and on
+        # the dual path bg quadrant uv*0.5-0.5, in one forward
         # (src/stage1_neural_atlas.py:181, loss_utils.py:157-160)
-        atlas_in = torch.cat([uv1[0] * 0.5 + 0.5, uv1[1] * 0.5 + 0.5,
-                              uv1[2] * 0.5 + 0.5], dim=0)
-        rgb_all = (apply_mlp(params["atlas"], atlas_in, specs.atlas)
-                   + 1.0) * 0.5
-        rgb_all = rgb_all.reshape(3, B, 3)
-        rgb_pred, rgb_pred_x, rgb_pred_y = rgb_all[0], rgb_all[1], rgb_all[2]
+        atlas_in = [uv1[0] * 0.5 + 0.5, uv1[1] * 0.5 + 0.5,
+                    uv1[2] * 0.5 + 0.5]
+        if dual:
+            coords2 = (coords1 if gd_bg == gd_fg else
+                       mapping_coords(j, i, f, ffwd, fbwd, gd_bg))
+            uv2 = run_mapping(params["mapping2"], specs.mapping2, coords2)
+            atlas_in += [uv2[0] * 0.5 - 0.5, uv2[1] * 0.5 - 0.5,
+                         uv2[2] * 0.5 - 0.5]
+        n_atlas = len(atlas_in)
+        rgb_all = (apply_mlp(params["atlas"], torch.cat(atlas_in, dim=0),
+                             specs.atlas) + 1.0) * 0.5
+        rgb_all = rgb_all.reshape(n_atlas, B, 3)
+        rgb1, rgb1_x, rgb1_y = rgb_all[0], rgb_all[1], rgb_all[2]
 
         aux: Dict[str, torch.Tensor] = {}
+        if dual:
+            rgb2, rgb2_x, rgb2_y = rgb_all[3], rgb_all[4], rgb_all[5]
+            # alpha at base / x+1 / y+1 / fwd match / bwd match in one
+            # forward: variants 0, 1, 2, 5, 6 of the mapping's coordinates
+            acoords = torch.cat([coords1[0:3], coords1[5:7]])
+            a_all = _squash_alpha(apply_mlp(
+                params["alpha"], acoords.reshape(5 * B, 3),
+                specs.alpha).reshape(5, B, 1))
+            a, a_x, a_y, a_fwd, a_bwd = a_all.unbind(0)
+
+            rgb_pred = rgb1 * a + rgb2 * (1.0 - a)
+            rgb_pred_x = rgb1_x * a_x + rgb2_x * (1.0 - a_x)
+            rgb_pred_y = rgb1_y * a_y + rgb2_y * (1.0 - a_y)
+        else:
+            a = 1.0
+            rgb_pred, rgb_pred_x, rgb_pred_y = rgb1, rgb1_x, rgb1_y
+
         l_rgb = rgb_loss(rgb_pred, rgb_gt)
         aux["rgb"] = l_rgb
         total = cfg.rgb_coeff * l_rgb
@@ -165,15 +239,44 @@ def make_loss_fn(specs: AtlasSpecs, cfg: AtlasConfig, data: VideoData,
         aux["rigidity1"] = l_rig1
         total = total + cfg.rigidity_coeff * l_rig1
         if include_global:
-            l_grig1 = rigidity_loss(uv1[0], uv1[7], uv1[8], gd, L,
+            l_grig1 = rigidity_loss(uv1[0], uv1[7], uv1[8], gd_fg, L,
                                     cfg.uv_mapping_scale)
             aux["global_rigidity1"] = l_grig1
             total = total + cfg.global_rigidity_coeff_fg * l_grig1
 
         l_flow1 = flow_loss(uv1[0], uv1[5], uv1[6], mfwd, mbwd, L,
-                            cfg.uv_mapping_scale, alpha=1.0)
+                            cfg.uv_mapping_scale, alpha=a)
         aux["flow1"] = l_flow1
         total = total + cfg.optical_flow_coeff * l_flow1
+
+        if dual:
+            l_rig2 = rigidity_loss(uv2[0], uv2[3], uv2[4], d, L,
+                                   cfg.uv_mapping_scale)
+            aux["rigidity2"] = l_rig2
+            total = total + cfg.rigidity_coeff * l_rig2
+            if include_global:
+                l_grig2 = rigidity_loss(uv2[0], uv2[7], uv2[8], gd_bg, L,
+                                        cfg.uv_mapping_scale)
+                aux["global_rigidity2"] = l_grig2
+                total = total + cfg.global_rigidity_coeff_bg * l_grig2
+
+            l_flow2 = flow_loss(uv2[0], uv2[5], uv2[6], mfwd, mbwd, L,
+                                cfg.uv_mapping_scale, alpha=1.0 - a)
+            aux["flow2"] = l_flow2
+            total = total + cfg.optical_flow_coeff * l_flow2
+
+            l_sparse = sparsity_loss(rgb1, a)
+            aux["sparsity"] = l_sparse
+            total = total + cfg.sparsity_coeff * l_sparse
+
+            l_aflow = alpha_flow_loss(a, a_fwd, a_bwd, mfwd, mbwd)
+            aux["alpha_flow"] = l_aflow
+            total = total + cfg.alpha_flow_factor * l_aflow
+
+            if include_bootstrap:
+                l_boot = alpha_bootstrap_loss(a, g[:, 15])
+                aux["alpha_bootstrap"] = l_boot
+                total = total + cfg.alpha_bootstrapping_factor * l_boot
 
         aux["total"] = total
         return total, aux
@@ -245,18 +348,22 @@ def fit_atlas(params: Params, specs: AtlasSpecs, data: VideoData,
     adam_state_from_host(optimizer, params, opt_state)
     batch = cfg.samples_batch
 
-    def include_global(i: int) -> bool:
-        return cfg.include_global_rigidity_loss and i <= cfg.stop_global_rigidity
+    # the schedule: which loss graph iteration i runs
+    def phase_flags(i: int) -> Tuple[bool, bool]:
+        include_global = (cfg.include_global_rigidity_loss
+                          and i <= cfg.stop_global_rigidity)
+        include_boot = specs.dual and i <= cfg.stop_bootstrapping_iteration
+        return include_global, include_boot
 
     boundaries = sorted({cfg.stop_global_rigidity + 1,
                          cfg.stop_bootstrapping_iteration + 1})
     eval_every = max(1, cfg.evaluate_every)
-    loss_fns: Dict[bool, Callable] = {}
+    loss_fns: Dict[Tuple[bool, bool], Callable] = {}
     logs: List[Dict[str, float]] = []
 
     i = start_iteration
     while i < cfg.iters_num:
-        flag = include_global(i)
+        flags = phase_flags(i)
         # chunk end: next schedule boundary, next eval point, or fit end
         nxt = i + max(1, cfg.steps_per_call)
         for b in boundaries:
@@ -268,9 +375,9 @@ def fit_atlas(params: Params, specs: AtlasSpecs, data: VideoData,
         nxt = min(nxt, cfg.iters_num)
         n_steps = nxt - i
 
-        if flag not in loss_fns:
-            loss_fns[flag] = make_loss_fn(specs, cfg, data, flag)
-        loss_fn = loss_fns[flag]
+        if flags not in loss_fns:
+            loss_fns[flags] = make_loss_fn(specs, cfg, data, *flags)
+        loss_fn = loss_fns[flags]
         sums: Optional[Dict[str, torch.Tensor]] = None
         for _ in range(n_steps):
             j = torch.randint(0, W, (batch,), generator=generator, device=device)

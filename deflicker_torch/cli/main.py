@@ -2,6 +2,8 @@
 framework extensions, running the port on a CUDA device.
 
     python -m deflicker_torch --video_name data/test/X.mp4 [--gpu N]
+    python -m deflicker_torch --video_name data/test/X.mp4 --class_name dog \
+        [--mask_provider grabcut]          # dual atlas (fg + bg layers)
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gpu", default=0, type=int,
                    help="CUDA device index: runs on cuda:N")
     p.add_argument("--class_name", default=None, type=str,
-                   help="segmentation class (dual atlas: not ported yet)")
+                   help="segmentation class: runs the dual-atlas fit (fg and "
+                        "bg layers) with masks from <vid>_seg, written by "
+                        "the mask provider where they are missing")
     p.add_argument("--ckpt_filter",
                    default="./pretrained_weights/neural_filter.pth", type=str)
     p.add_argument("--ckpt_local",
@@ -36,7 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--config", default="config_flow_100.json", type=str,
                    help="stage-1 hyperparameter JSON (reference format)")
     p.add_argument("--down", default=None, type=int,
-                   help="downscale factor (default: 4)")
+                   help="downscale factor (default: 4; 1 with --class_name)")
     p.add_argument("--root", default="data/test/", type=str)
     p.add_argument("--results_root", default="results", type=str)
     p.add_argument("--max_long_edge", default=2000, type=int)
@@ -60,6 +64,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="map padded stage-2 outputs back to frame size: "
                         "crop = exact (default), resize = the reference's "
                         "squashing unpad-by-resize quirk")
+    p.add_argument("--mask_provider", default=None,
+                   choices=[None, "carvekit", "maskrcnn", "grabcut"],
+                   help="mask backend of the dual-atlas path (default: "
+                        "carvekit for class 'portrait', Mask-RCNN otherwise; "
+                        "grabcut needs no extra package)")
     return p
 
 
@@ -71,7 +80,7 @@ def args_to_configs(args) -> tuple[PipelineConfig, AtlasConfig]:
         ckpt_filter=args.ckpt_filter, ckpt_local=args.ckpt_local,
         ckpt_raft=args.ckpt_raft, config=args.config, down=args.down,
         root=args.root, results_root=args.results_root,
-        max_long_edge=args.max_long_edge,
+        max_long_edge=args.max_long_edge, mask_provider=args.mask_provider,
         stage2_dtype=args.stage2_precision,
         stage2_unpad=args.stage2_unpad)
     cfg_path = Path(args.config)

@@ -1,10 +1,12 @@
-"""End-to-end pipeline: decode -> flow -> atlas fit -> render -> filter.
+"""End-to-end pipeline: decode -> (masks) -> flow -> atlas fit -> render ->
+filter.
 
 Stages call each other as functions, and every stage reads and writes the
 reference's filesystem artifacts, so each stays independently runnable and
-idempotent.  The port runs the single-atlas path on one device, with RAFT
-flow when a RAFT checkpoint is on disk; the dual atlas (`--class_name`) and
-the chunked long-video fit are later slices and raise NotImplementedError.
+idempotent.  The port runs the single-atlas path and, with `class_name`
+set, the dual-atlas path (foreground masks, four networks, texture export)
+on one device, with RAFT flow when a RAFT checkpoint is on disk; the
+chunked long-video fit is not ported yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..atlas import (build_specs, evaluate_and_save, fit_atlas, init_models,
-                     load_video_data, pretrain_mapping, save_mask_flow_videos)
+from ..atlas import (build_specs, evaluate_and_save, export_atlas_artifacts,
+                     fit_atlas, init_models, load_video_data, pretrain_mapping,
+                     save_mask_flow_videos)
 from ..config import AtlasConfig, PipelineConfig, load_atlas_config
 from ..flow import FarnebackFlow, RAFTFlow, preprocess_optical_flow
 from ..io.media import list_frames, read_image, video_to_frames
@@ -78,12 +81,16 @@ def _stage1_resolution(frames_dir: Path, down: Optional[int],
 
 
 def _generators(seed: int, device: torch.device):
-    """(init, pretrain, fit) generators from one seed.  Init draws on the
-    CPU, so a seed gives the same initial weights on every device."""
+    """(init, pretrain mapping1, fit, pretrain mapping2) generators from one
+    seed.  Init draws on the CPU, so a seed gives the same initial weights
+    on every device; mapping2's pretrain has a generator of its own, so the
+    single-atlas run draws the same streams whether or not a dual run
+    exists."""
     init = torch.Generator().manual_seed(seed)
     pre = torch.Generator(device=device).manual_seed(seed + 1)
     fit = torch.Generator(device=device).manual_seed(seed + 2)
-    return init, pre, fit
+    pre2 = torch.Generator(device=device).manual_seed(seed + 3)
+    return init, pre, fit, pre2
 
 
 def _sync(device: torch.device) -> None:
@@ -95,11 +102,10 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
                atlas_cfg: AtlasConfig, device, dual: bool = False,
                results_root: Optional[Path] = None,
                flow_provider=None) -> Dict:
-    """Flow preprocessing + atlas fit + render (src/stage1_neural_atlas.py
-    main()), single fit."""
-    if dual:
-        raise NotImplementedError("the dual-atlas path (--class_name) is a "
-                                  "later slice of the port")
+    """Flow preprocessing + atlas fit + render
+    (src/stage1_neural_atlas[_seg].py main()), single fit.  `dual` reads
+    the `<vid>_seg` masks, fits mapping2 and alpha beside mapping1 and the
+    atlas, and exports the fg/bg textures after the final render."""
     device = torch.device(device)
     t0 = time.time()
     if flow_provider is None:
@@ -124,12 +130,13 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
             "is a later slice of the port (the video is not truncated)")
 
     data = load_video_data(frames_dir, resy, resx,
-                           atlas_cfg.maximum_number_of_frames)
+                           atlas_cfg.maximum_number_of_frames,
+                           use_masks=dual)
     T, (H, W) = data.num_frames, data.res
     save_mask_flow_videos(data, results_folder)
 
-    specs = build_specs(atlas_cfg)
-    g_init, g_pre, g_fit = _generators(atlas_cfg.seed, device)
+    specs = build_specs(atlas_cfg, dual=dual)
+    g_init, g_pre, g_fit, g_pre2 = _generators(atlas_cfg.seed, device)
 
     start_iteration = 0
     opt_state = None
@@ -145,6 +152,10 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
         if atlas_cfg.pretrain_mapping1:
             pretrain_mapping(params["mapping1"], specs.mapping1, g_pre, T, H, W,
                              atlas_cfg.uv_mapping_scale,
+                             atlas_cfg.pretrain_iter_number)
+        if dual and atlas_cfg.pretrain_mapping2:
+            pretrain_mapping(params["mapping2"], specs.mapping2, g_pre2, T, H,
+                             W, atlas_cfg.uv_mapping_scale,
                              atlas_cfg.pretrain_iter_number)
         _sync(device)
         t_pretrain = time.time() - t1
@@ -168,6 +179,12 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
     rendered, mean_psnr = evaluate_and_save(
         result.params, specs, data, atlas_cfg, results_folder,
         result.iteration - 1, result.opt_state)
+    if dual:
+        # fg/bg texture PNGs + alpha maps (the dual evaluator's artifact
+        # set, reference: evaluate.py:203-602)
+        export_atlas_artifacts(result.params, specs, data,
+                               results_folder / "texture")
+    _sync(device)
     t_render = time.time() - t3
     logger.log_image(result.iteration - 1, "reconstruction", rendered[0])
     logger.log_image(result.iteration - 1, "input", np.asarray(data.video[0]))
@@ -226,6 +243,11 @@ def run_pipeline(cfg: PipelineConfig, atlas_cfg: Optional[AtlasConfig] = None,
     t_start = time.time()
     frames_dir = prepare_frames(cfg)
     dual = cfg.class_name is not None
+    if dual:
+        from ..seg import get_mask_provider, preprocess_masks
+
+        provider = get_mask_provider(cfg.class_name, cfg.mask_provider)
+        preprocess_masks(frames_dir, provider)
     s1 = run_stage1(frames_dir, cfg, atlas_cfg, device, dual=dual,
                     flow_provider=flow_provider)
     s2 = run_stage2(frames_dir, cfg, device, engine=filter_engine)

@@ -88,8 +88,9 @@ class AtlasConfig:
     # path.  The name is kept so reference JSONs written for the JAX
     # package load unchanged.
     use_pallas_imlp: bool = True
-    # Write residual/uv/per-pixel-loss diagnostic mp4s at evaluation (not
-    # ported yet: the port raises NotImplementedError when set).
+    # Write residual/uv/per-pixel-loss diagnostic mp4s at evaluation (and
+    # the alpha / uv_2 set on the dual path); off by default: it renders
+    # every frame a second time and draws a matplotlib panel per frame.
     save_diagnostics: bool = False
 
     def to_reference_json(self) -> dict:
@@ -156,6 +157,11 @@ class PipelineConfig:
 
     # flow preprocessing (reference: src/preprocess_optical_flow.py:37-42)
     max_long_edge: int = 2000
+
+    # segmentation provider for the dual-atlas path: "carvekit", "maskrcnn",
+    # or "grabcut" (dependency-free).  None = reference behavior
+    # (carvekit for class_name == "portrait", Mask-RCNN otherwise).
+    mask_provider: Optional[str] = None
 
     # framework extensions
     # stage-2 conv compute dtype: "bfloat16" casts weights and input to bf16

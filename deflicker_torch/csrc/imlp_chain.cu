@@ -1,10 +1,18 @@
-// Fused IMLP linear-relu chain for Hopper (sm_90a): forward and remat backward.
+// Fused IMLP linear-relu chain for Hopper (sm_90a): forward and backward, each
+// in a remat and a stash variant.
 //
 // Replaces the TPU kernels of deflicker_tpu/ops/pallas/imlp_kernel.py:
 //   * forward  — `_call_fwd` (:421, pallas_call :435; bodies `_fwd_kernel_pipe`
 //     :237 / `_fwd_kernel` :111 through `_layer_fwd` :91, v2 split-skip);
 //   * backward — `_chain_bwd` (:470, pallas_call :488; bodies
-//     `_bwd_kernel_pipe` :265 / `_bwd_kernel` :127 + `_reverse_pass` :163).
+//     `_bwd_kernel_pipe` :265 / `_bwd_kernel` :127 + `_reverse_pass` :163);
+//   * stash forward — `_chain_stash_fwd` (:514, pallas_call :536; body
+//     `_fwd_kernel_stash` :334): the same chain, which also writes the bf16
+//     post-relu input of layers 1..n-1 to a tensor the caller keeps;
+//   * stash backward — `_chain_stash_bwd` (:547, pallas_call :568; body
+//     `_bwd_kernel_stash` :355): the reverse pass reading that stash, with no
+//     recompute.  The stash holds the very cast the remat backward makes
+//     (one `chain_forward` writes both), so its gradients are bit-identical.
 //
 // Function computed (pre-tanh chain, bf16 operands, f32 accumulation):
 //   h0 = bf16(x)·bf16(W0) + b0
@@ -48,6 +56,17 @@
 //     fixed order, so the gradients are deterministic.  Activations go to
 //     HBM, not on chip: the 6-8 layers of a 64-row tile would need up to
 //     224 KB of shared memory, and the dW GEMM reads them from HBM anyway.
+//   * Stash pair.  The stash forward is bound by bytes, not operations: it
+//     writes B x sum(widths) bf16 (230 MB for the mapping at 90k rows, about
+//     0.07 ms of HBM time against 0.05 ms of tensor-core time).  The stores
+//     are the bf16 pairs the epilogue already holds in registers, written
+//     beside the shared-memory copy; rows past B are never stored, so the
+//     stash is exactly (B, r16(width)) per layer, one buffer, no padding
+//     rows.  The stash backward drops the forward recompute (a third of the
+//     remat backward's operations) and reads each stash layer twice: once as
+//     the relu mask of the reverse pass, once as A of the dW GEMM, whose
+//     loads zero-fill rows past B.  bf16(x), which layer 0 and the skip
+//     layers need as A, is cast again from x into the scratch.
 //
 // Interface: plain C, loaded with ctypes; every launch goes on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
@@ -118,13 +137,34 @@ __host__ __device__ inline SmemLayout smem_layout(const ChainDesc& d) {
   return L;
 }
 
+// Where the bf16 post-relu input of layer i (1..n-1) lives: rows of
+// r16(out_dim[i-1]) elements starting at base + off[i].  Rows past B are
+// neither stored nor read.
+struct StashView {
+  bf16* base;
+  size_t off[MAXL];
+};
+
+// element offsets of a caller-owned stash: B rows per layer, back to back
+__host__ __device__ inline size_t stash_offsets(const ChainDesc& d, int B, size_t* off) {
+  size_t o = 0;
+  for (int i = 1; i < d.n_layers; ++i) {
+    if (off != nullptr) off[i] = o;
+    o += (size_t)B * r16(d.out_dim[i - 1]);
+  }
+  return o;
+}
+
 struct ScratchLayout {
   int ntiles, Bp, S, totalW, totalB;
   int woff[MAXL], boff[MAXL];
   size_t stash_x, stashA[MAXL], G[MAXL], dbp, part, bytes;
 };
 
-__host__ __device__ inline ScratchLayout scratch_layout(const ChainDesc& d, int B) {
+// own_stash: the activation stash lives in the scratch (remat backward);
+// otherwise the caller owns it (stash backward) and the scratch is smaller.
+__host__ __device__ inline ScratchLayout scratch_layout(const ChainDesc& d, int B,
+                                                        bool own_stash) {
   ScratchLayout S;
   S.ntiles = (B + BM - 1) / BM;
   S.Bp = S.ntiles * BM;
@@ -143,7 +183,7 @@ __host__ __device__ inline ScratchLayout scratch_layout(const ChainDesc& d, int 
   S.stashA[0] = 0;
   for (int i = 1; i < d.n_layers; ++i) {
     S.stashA[i] = off;
-    off += align256((size_t)S.Bp * r16(d.out_dim[i - 1]) * sizeof(bf16));
+    if (own_stash) off += align256((size_t)S.Bp * r16(d.out_dim[i - 1]) * sizeof(bf16));
   }
   for (int i = 0; i < d.n_layers; ++i) {
     S.G[i] = off;
@@ -357,14 +397,15 @@ __device__ __forceinline__ void gemm_bwd_seg(Acc& acc, const bf16* G, int ldg, i
   }
 }
 
-// Forward over one tile.  STASH (backward recompute): write bf16(x) and the
-// bf16 post-relu input of every layer 1..n-1 to the scratch, and skip the
-// last layer, whose output the backward does not need.
-template <bool STASH>
+// Forward over one tile.  STASH: write the bf16 post-relu input of every
+// layer 1..n-1 to `sv` (and bf16(x) to `stash_x` where that is given).
+// OUTPUT: run the last layer and store `out`; the remat backward's recompute
+// skips it, since the backward does not need the chain's output.
+template <bool STASH, bool OUTPUT>
 __device__ __forceinline__ void chain_forward(const ChainDesc& d, const SmemLayout& L,
                                               const float* __restrict__ x, int B, int row0,
                                               float* __restrict__ out, unsigned char* smem,
-                                              char* scratch, const ScratchLayout& S) {
+                                              bf16* stash_x, const StashView& sv) {
   bf16* xs = reinterpret_cast<bf16*>(smem + L.off_xs);
   bf16* act = reinterpret_cast<bf16*>(smem + L.off_act);
   bf16* slab0 = reinterpret_cast<bf16*>(smem + L.off_slab0);
@@ -373,17 +414,16 @@ __device__ __forceinline__ void chain_forward(const ChainDesc& d, const SmemLayo
   const int g = lane >> 2, t = lane & 3;
 
   const int Ep = r16(d.E);
-  bf16* stash_x = STASH ? reinterpret_cast<bf16*>(scratch + S.stash_x) : nullptr;
   for (int idx = threadIdx.x; idx < BM * Ep; idx += NTHREADS) {
     const int r = idx / Ep, c = idx - r * Ep;
     const int gr = row0 + r;
     const float v = (gr < B && c < d.E) ? x[(size_t)gr * d.E + c] : 0.0f;
     const bf16 h = __float2bfloat16(v);
     xs[r * L.xld + c] = h;
-    if (STASH) stash_x[(size_t)gr * Ep + c] = h;
+    if (STASH && stash_x != nullptr && gr < B) stash_x[(size_t)gr * Ep + c] = h;
   }
 
-  const int nl = STASH ? d.n_layers - 1 : d.n_layers;
+  const int nl = OUTPUT ? d.n_layers : d.n_layers - 1;
   for (int l = 0; l < nl; ++l) {
     const int N = d.out_dim[l], Np = r16(N), NT = Np >> 4;
     Acc acc;
@@ -397,7 +437,7 @@ __device__ __forceinline__ void chain_forward(const ChainDesc& d, const SmemLayo
     }
     // gemm_*_seg ends with __syncthreads: nobody reads act any more
     const bool last = (l == d.n_layers - 1);
-    bf16* stash = STASH ? reinterpret_cast<bf16*>(scratch + S.stashA[l + 1]) : nullptr;
+    bf16* stash = (STASH && !last) ? sv.base + sv.off[l + 1] : nullptr;
     const float* __restrict__ bias = d.b[l];
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
@@ -425,7 +465,8 @@ __device__ __forceinline__ void chain_forward(const ChainDesc& d, const SmemLayo
               const bf162 p = __floats2bfloat162_rn(col < N ? relu_keep_nan(v0) : 0.0f,
                                                     col + 1 < N ? relu_keep_nan(v1) : 0.0f);
               *reinterpret_cast<bf162*>(act + row * L.ald + col) = p;
-              if (STASH) *reinterpret_cast<bf162*>(stash + (size_t)(row0 + row) * Np + col) = p;
+              if (STASH && row0 + row < B)
+                *reinterpret_cast<bf162*>(stash + (size_t)(row0 + row) * Np + col) = p;
             }
           }
         }
@@ -440,20 +481,57 @@ __global__ void __launch_bounds__(NTHREADS, FWD_MIN_BLOCKS)
 chain_fwd_kernel(ChainDesc d, const float* __restrict__ x, float* __restrict__ out, int B) {
   extern __shared__ __align__(128) unsigned char smem[];
   const SmemLayout L = smem_layout(d);
-  const ScratchLayout S{};  // unused without a stash
-  chain_forward<false>(d, L, x, B, blockIdx.x * BM, out, smem, nullptr, S);
+  const StashView none{};  // unused without a stash
+  chain_forward<false, true>(d, L, x, B, blockIdx.x * BM, out, smem, nullptr, none);
 }
 
-// (at 128 registers this kernel spills ~1.6 KB a thread for no gain: it
-// keeps the register file to itself, one block per SM)
-__global__ void __launch_bounds__(NTHREADS)
-chain_bwd_kernel(ChainDesc d, const float* __restrict__ x, const float* __restrict__ g,
-                 float* __restrict__ dx, int B, char* scratch) {
+// the stash forward: the same chain, which also fills the caller's `stash`
+__global__ void __launch_bounds__(NTHREADS, FWD_MIN_BLOCKS)
+chain_fwd_stash_kernel(ChainDesc d, const float* __restrict__ x, float* __restrict__ out, int B,
+                       bf16* stash) {
   extern __shared__ __align__(128) unsigned char smem[];
   const SmemLayout L = smem_layout(d);
-  const ScratchLayout S = scratch_layout(d, B);
+  StashView sv;
+  sv.base = stash;
+  stash_offsets(d, B, sv.off);
+  chain_forward<true, true>(d, L, x, B, blockIdx.x * BM, out, smem, nullptr, sv);
+}
+
+// Reverse pass over one tile.  STASHED: `stash` is what a stash forward
+// wrote; otherwise the stash lives in the scratch and the tile's forward is
+// recomputed into it first (remat).
+// (at 128 registers this kernel spills ~1.6 KB a thread for no gain: it
+// keeps the register file to itself, one block per SM)
+template <bool STASHED>
+__global__ void __launch_bounds__(NTHREADS)
+chain_bwd_kernel(ChainDesc d, const float* __restrict__ x, const float* __restrict__ g,
+                 float* __restrict__ dx, int B, char* scratch, bf16* stash) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const SmemLayout L = smem_layout(d);
+  const ScratchLayout S = scratch_layout(d, B, !STASHED);
   const int tile = blockIdx.x, row0 = tile * BM;
-  chain_forward<true>(d, L, x, B, row0, nullptr, smem, scratch, S);
+  bf16* stash_x = reinterpret_cast<bf16*>(scratch + S.stash_x);
+  StashView sv;
+  if (STASHED) {
+    sv.base = stash;
+    stash_offsets(d, B, sv.off);
+  } else {
+    sv.base = reinterpret_cast<bf16*>(scratch);
+    for (int i = 1; i < d.n_layers; ++i) sv.off[i] = S.stashA[i] / sizeof(bf16);
+  }
+  if (STASHED) {
+    // bf16(x) for the dW GEMM of layer 0 and the skip layers
+    const int Ep = r16(d.E);
+    for (int idx = threadIdx.x; idx < BM * Ep; idx += NTHREADS) {
+      const int r = idx / Ep, c = idx - r * Ep;
+      const int gr = row0 + r;
+      if (gr < B)
+        stash_x[(size_t)gr * Ep + c] =
+            __float2bfloat16(c < d.E ? x[(size_t)gr * d.E + c] : 0.0f);
+    }
+  } else {
+    chain_forward<true, false>(d, L, x, B, row0, nullptr, smem, stash_x, sv);
+  }
 
   bf16* act = reinterpret_cast<bf16*>(smem + L.off_act);
   bf16* slab0 = reinterpret_cast<bf16*>(smem + L.off_slab0);
@@ -489,7 +567,7 @@ chain_bwd_kernel(ChainDesc d, const float* __restrict__ x, const float* __restri
     zero_acc(acc);
     gemm_bwd_seg(acc, act, L.ald, N, d.W[i], Kk, slab0, slab1);
     // (ends with __syncthreads: g_i in act is no longer read)
-    const bf16* Ai = (i > 0) ? reinterpret_cast<const bf16*>(scratch + S.stashA[i]) : nullptr;
+    const bf16* Ai = (i > 0) ? sv.base + sv.off[i] : nullptr;
     bf16* Gp = (i > 0) ? reinterpret_cast<bf16*>(scratch + S.G[i - 1]) : nullptr;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
@@ -507,7 +585,10 @@ chain_bwd_kernel(ChainDesc d, const float* __restrict__ x, const float* __restri
             const size_t gr = (size_t)(row0 + row);
             float v0 = acc[rt][j][h][2 * hr], v1 = acc[rt][j][h][2 * hr + 1];
             if (i > 0) {
-              const bf162 a = *reinterpret_cast<const bf162*>(Ai + gr * Kkp + col);
+              // rows past B hold no stash; their gradient is zero anyway
+              const bool in = (int)gr < B;
+              const bf162 a = in ? *reinterpret_cast<const bf162*>(Ai + gr * Kkp + col)
+                                 : __floats2bfloat162_rn(0.0f, 0.0f);
               v0 = (__low2float(a) > 0.0f) ? v0 : 0.0f;
               v1 = (__high2float(a) > 0.0f) ? v1 : 0.0f;
               const bf162 p = __floats2bfloat162_rn(v0, v1);
@@ -550,14 +631,15 @@ struct DwDesc {
   DwSeg seg[2 * MAXL];
 };
 
-// one DW_RK-row chunk of A[:, m0 : m0 + DW_T] and G[:, n0 : n0 + DW_T] -> smem
+// one DW_RK-row chunk of A[:, m0 : m0 + DW_T] and G[:, n0 : n0 + DW_T] -> smem;
+// A holds B rows (read as zero past them), G the padded Bp
 __device__ __forceinline__ void load_dw_chunk(bf16* As, bf16* Gs, const DwSeg& sg, int r,
-                                              int m0, int n0) {
+                                              int m0, int n0, int B) {
   constexpr int nv = DW_T / 8;
   for (int idx = threadIdx.x; idx < DW_RK * nv; idx += NTHREADS) {
     const int k = idx / nv, c = (idx - k * nv) << 3;
     const size_t row = (size_t)(r + k);
-    const bool oka = m0 + c < sg.lda, okg = n0 + c < sg.ldg;
+    const bool oka = m0 + c < sg.lda && r + k < B, okg = n0 + c < sg.ldg;
     cp_async16(As + k * DW_LD + c, oka ? sg.A + row * sg.lda + m0 + c : sg.A, oka);
     cp_async16(Gs + k * DW_LD + c, okg ? sg.G + row * sg.ldg + n0 + c : sg.G, okg);
   }
@@ -566,7 +648,7 @@ __device__ __forceinline__ void load_dw_chunk(bf16* As, bf16* Gs, const DwSeg& s
 // dW partial of one DW_T x DW_T output tile over one row slice: Aᵀ·G.
 // Warp (wm, wn) owns rows wm*32..+32 and columns wn*64..+64 of the tile.
 __global__ void __launch_bounds__(NTHREADS)
-dw_kernel(DwDesc dd, int Bp, float* __restrict__ part, int totalW) {
+dw_kernel(DwDesc dd, int B, int Bp, float* __restrict__ part, int totalW) {
   __shared__ __align__(128) bf16 As[2][DW_RK * DW_LD];
   __shared__ __align__(128) bf16 Gs[2][DW_RK * DW_LD];
   const int tblk = blockIdx.x, s = blockIdx.y;
@@ -593,12 +675,12 @@ dw_kernel(DwDesc dd, int Bp, float* __restrict__ part, int totalW) {
 
   const int r0 = s * DW_ROWS, r1 = imin(Bp, r0 + DW_ROWS);
   const int nchunk = (r1 - r0) / DW_RK;
-  load_dw_chunk(As[0], Gs[0], sg, r0, m0, n0);
+  load_dw_chunk(As[0], Gs[0], sg, r0, m0, n0, B);
   cp_async_commit();
   for (int c = 0; c < nchunk; ++c) {
     const int buf = c & 1;
     if (c + 1 < nchunk) {
-      load_dw_chunk(As[buf ^ 1], Gs[buf ^ 1], sg, r0 + (c + 1) * DW_RK, m0, n0);
+      load_dw_chunk(As[buf ^ 1], Gs[buf ^ 1], sg, r0 + (c + 1) * DW_RK, m0, n0, B);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -675,39 +757,57 @@ int check_desc(const ChainDesc* d, int B) {
   return 0;
 }
 
-}  // namespace
-
-extern "C" {
-
-size_t imlp_chain_bwd_scratch_bytes(const ChainDesc* d, int B) {
-  return scratch_layout(*d, B).bytes;
-}
-
-int imlp_chain_fwd(const ChainDesc* d, const float* x, float* out, int B, void* stream) {
+// forward launch, with (STASH) or without a caller-owned stash
+template <bool STASH>
+int launch_fwd(const ChainDesc* d, const float* x, float* out, bf16* stash, int B,
+               void* stream) {
   const int bad = check_desc(d, B);
   if (bad) return bad;
+  if (STASH && stash == nullptr && d->n_layers > 1) return (int)cudaErrorInvalidValue;
   const SmemLayout L = smem_layout(*d);
-  cudaError_t err = cudaFuncSetAttribute(chain_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L.bytes);
-  if (err != cudaSuccess) return (int)err;
   const int ntiles = (B + BM - 1) / BM;
-  chain_fwd_kernel<<<ntiles, NTHREADS, L.bytes, (cudaStream_t)stream>>>(*d, x, out, B);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err =
+      STASH ? cudaFuncSetAttribute(chain_fwd_stash_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes)
+            : cudaFuncSetAttribute(chain_fwd_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (STASH)
+    chain_fwd_stash_kernel<<<ntiles, NTHREADS, L.bytes, st>>>(*d, x, out, B, stash);
+  else
+    chain_fwd_kernel<<<ntiles, NTHREADS, L.bytes, st>>>(*d, x, out, B);
   return (int)cudaGetLastError();
 }
 
-int imlp_chain_bwd(const ChainDesc* d, const float* x, const float* g, float* dx, float* grads,
-                   int B, void* scratch, void* stream) {
+// backward launches: the reverse pass (after a recompute, or reading the
+// caller's `stash` when STASHED), the dW GEMM and the reduction
+template <bool STASHED>
+int launch_bwd(const ChainDesc* d, const float* x, const float* g, bf16* stash, float* dx,
+               float* grads, int B, void* scratch, void* stream) {
   const int bad = check_desc(d, B);
   if (bad) return bad;
+  if (STASHED && stash == nullptr && d->n_layers > 1) return (int)cudaErrorInvalidValue;
   const SmemLayout L = smem_layout(*d);
-  const ScratchLayout S = scratch_layout(*d, B);
+  const ScratchLayout S = scratch_layout(*d, B, !STASHED);
   cudaStream_t st = (cudaStream_t)stream;
   char* base = (char*)scratch;
 
-  cudaError_t err = cudaFuncSetAttribute(chain_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  // the same view of the stash as the kernel builds, for the dW GEMM's A
+  StashView sv{};
+  if (STASHED) {
+    sv.base = stash;
+    stash_offsets(*d, B, sv.off);
+  } else {
+    sv.base = reinterpret_cast<bf16*>(base);
+    for (int i = 1; i < d->n_layers; ++i) sv.off[i] = S.stashA[i] / sizeof(bf16);
+  }
+
+  cudaError_t err = cudaFuncSetAttribute(chain_bwd_kernel<STASHED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.bytes);
   if (err != cudaSuccess) return (int)err;
-  chain_bwd_kernel<<<S.ntiles, NTHREADS, L.bytes, st>>>(*d, x, g, dx, B, base);
+  chain_bwd_kernel<STASHED><<<S.ntiles, NTHREADS, L.bytes, st>>>(*d, x, g, dx, B, base, stash);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -720,7 +820,7 @@ int imlp_chain_bwd(const ChainDesc* d, const float* x, const float* g, float* dx
     for (int q = 0; q < nsub; ++q) {
       DwSeg& sg = dd.seg[dd.nseg++];
       const bool xseg = (i == 0) || q == 1;
-      sg.A = reinterpret_cast<const bf16*>(base + (xseg ? S.stash_x : S.stashA[i]));
+      sg.A = xseg ? reinterpret_cast<const bf16*>(base + S.stash_x) : sv.base + sv.off[i];
       sg.lda = xseg ? Ep : r16(d->out_dim[i - 1]);
       sg.K = xseg ? d->E : d->out_dim[i - 1];
       sg.rowoff = (q == 1) ? d->out_dim[i - 1] : 0;
@@ -734,7 +834,7 @@ int imlp_chain_bwd(const ChainDesc* d, const float* x, const float* g, float* dx
     }
   }
   float* part = reinterpret_cast<float*>(base + S.part);
-  dw_kernel<<<dim3(tiles, S.S), NTHREADS, 0, st>>>(dd, S.Bp, part, S.totalW);
+  dw_kernel<<<dim3(tiles, S.S), NTHREADS, 0, st>>>(dd, B, S.Bp, part, S.totalW);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -743,6 +843,42 @@ int imlp_chain_bwd(const ChainDesc* d, const float* x, const float* g, float* dx
                                                      reinterpret_cast<const float*>(base + S.dbp),
                                                      S.ntiles, S.totalB, grads);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+size_t imlp_chain_bwd_scratch_bytes(const ChainDesc* d, int B) {
+  return scratch_layout(*d, B, true).bytes;
+}
+
+size_t imlp_chain_bwd_stash_scratch_bytes(const ChainDesc* d, int B) {
+  return scratch_layout(*d, B, false).bytes;
+}
+
+// bf16 elements of the stash of a B-row call: B x sum r16(width of layers 0..n-2)
+size_t imlp_chain_stash_elems(const ChainDesc* d, int B) {
+  return stash_offsets(*d, B, nullptr);
+}
+
+int imlp_chain_fwd(const ChainDesc* d, const float* x, float* out, int B, void* stream) {
+  return launch_fwd<false>(d, x, out, nullptr, B, stream);
+}
+
+int imlp_chain_fwd_stash(const ChainDesc* d, const float* x, float* out, void* stash, int B,
+                         void* stream) {
+  return launch_fwd<true>(d, x, out, (bf16*)stash, B, stream);
+}
+
+int imlp_chain_bwd(const ChainDesc* d, const float* x, const float* g, float* dx, float* grads,
+                   int B, void* scratch, void* stream) {
+  return launch_bwd<false>(d, x, g, nullptr, dx, grads, B, scratch, stream);
+}
+
+int imlp_chain_bwd_stash(const ChainDesc* d, const float* x, const float* g, const void* stash,
+                         float* dx, float* grads, int B, void* scratch, void* stream) {
+  return launch_bwd<true>(d, x, g, (bf16*)stash, dx, grads, B, scratch, stream);
 }
 
 }  // extern "C"

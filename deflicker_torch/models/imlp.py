@@ -104,16 +104,19 @@ def imlp_apply(params, x: torch.Tensor, spec: IMLPSpec) -> torch.Tensor:
 
 
 def imlp_apply_fused(params, x: torch.Tensor, spec: IMLPSpec,
-                     compute_dtype=torch.bfloat16) -> torch.Tensor:
+                     compute_dtype=torch.bfloat16,
+                     stash_bwd: bool = False) -> torch.Tensor:
     """The IMLP through the fused chain kernel (ops/cuda/imlp_kernel):
     positional encoding and the output head here, the matmul chain in the
     kernel (its plain twin for CPU tensors).  bf16 is the fit's
-    fit_precision="default" numerics; the kernel computes bf16 only."""
+    fit_precision="default" numerics; the kernel computes bf16 only.
+    `stash_bwd` picks the stash pair of kernels (the forward writes its
+    activations, the backward reads them) over the remat pair."""
     from ..ops.cuda.imlp_kernel import fused_imlp_linear_chain
 
     lead = x.shape[:-1]
     if spec.use_positional:
         x = positional_encoding(x, spec.positional_dim)
     h = fused_imlp_linear_chain(params, x.reshape(-1, x.shape[-1]),
-                                spec.skip_layers, compute_dtype)
+                                spec.skip_layers, compute_dtype, stash_bwd)
     return _head(h.reshape(*lead, -1), spec)

@@ -3,17 +3,25 @@
 The CUDA source is `deflicker_torch/csrc/imlp_chain.cu` (its header says
 which TPU kernels it replaces, its bound and its design).  This module:
 
-  * `imlp_chain_fwd_cuda` / `imlp_chain_bwd_cuda` check their tensors,
-    allocate outputs and scratch with `torch.empty`, launch on the current
-    stream, raise on a non-zero `cudaGetLastError()`, and count launches in
-    `launches["fwd"]` / `launches["bwd"]`;
-  * `imlp_chain_fwd_plain` / `imlp_chain_bwd_plain` are the same arithmetic
-    in plain PyTorch — bf16 operands emulated as `t.to(bf16).float()` so
-    every product accumulates in f32 (a bf16 `torch.matmul` on the CPU rounds
-    its output to bf16, which the kernel does not);
-  * `fused_imlp_linear_chain` is the differentiable entry point.  It runs the
-    plain version for CPU tensors and the kernels for CUDA tensors: there is
-    no switch that sends CUDA tensors anywhere else.
+  * `imlp_chain_fwd_cuda` / `imlp_chain_bwd_cuda` (the remat pair: the
+    backward recomputes the forward) and `imlp_chain_fwd_stash_cuda` /
+    `imlp_chain_bwd_stash_cuda` (the stash pair: the forward also writes the
+    bf16 post-relu input of layers 1..n-1 to one buffer that autograd keeps,
+    the backward reads it) check their tensors, allocate outputs, stash and
+    scratch with `torch.empty`, launch on the current stream, raise on a
+    non-zero `cudaGetLastError()`, and count launches in `launches["fwd"]`,
+    `["bwd"]`, `["fwd_stash"]`, `["bwd_stash"]`;
+  * `imlp_chain_fwd_plain` / `imlp_chain_bwd_plain` and
+    `imlp_chain_fwd_stash_plain` / `imlp_chain_bwd_stash_plain` are the same
+    arithmetic in plain PyTorch — bf16 operands emulated as
+    `t.to(bf16).float()` so every product accumulates in f32 (a bf16
+    `torch.matmul` on the CPU rounds its output to bf16, which the kernel
+    does not).  Both pairs share one forward and one reverse pass, so stash
+    gradients equal remat gradients bit for bit;
+  * `fused_imlp_linear_chain` is the differentiable entry point
+    (`stash_bwd` picks the pair).  It runs the plain version for CPU tensors
+    and the kernels for CUDA tensors: there is no switch that sends CUDA
+    tensors anywhere else.
 
 Layouts follow the JAX package: x (B, E) is the already-encoded input,
 weights are (in, out), and the output is the pre-tanh (B, out) chain.
@@ -31,7 +39,7 @@ MAX_WIDTH = 256
 
 # launches of each kernel wrapper (a bwd launch is the chain, dW and reduce
 # kernels of one backward call)
-launches = {"fwd": 0, "bwd": 0}
+launches = {"fwd": 0, "bwd": 0, "fwd_stash": 0, "bwd_stash": 0}
 
 
 def reset_launches() -> None:
@@ -60,59 +68,39 @@ def _check_layers(E: int, weights: Sequence[torch.Tensor],
                              f"{want} inputs")
 
 
-def imlp_chain_fwd_plain(xe: torch.Tensor, weights: Sequence[torch.Tensor],
-                         biases: Sequence[torch.Tensor],
-                         skip_layers: Sequence[int],
-                         compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Pre-tanh chain output (B, out) — `_fwd_kernel` through `_layer_fwd`
-    (v2 split skip) of the TPU kernel, in plain PyTorch."""
-    _check_layers(xe.shape[1], weights, skip_layers)
-    xc = _cast(xe, compute_dtype)
-    h = xe.float()
-    for i, (w, b) in enumerate(zip(weights, biases)):
-        if i == 0:
-            h = xc @ _cast(w, compute_dtype) + b.float()
-            continue
-        a = _cast(torch.relu(h), compute_dtype)
-        if i in skip_layers:
-            d = a.shape[1]
-            h = (a @ _cast(w[:d], compute_dtype)
-                 + xc @ _cast(w[d:], compute_dtype) + b.float())
-        else:
-            h = a @ _cast(w, compute_dtype) + b.float()
-    return h
-
-
-def imlp_chain_bwd_plain(xe: torch.Tensor, weights: Sequence[torch.Tensor],
-                         biases: Sequence[torch.Tensor],
-                         skip_layers: Sequence[int], g: torch.Tensor,
-                         need_dx: bool = True, compute_dtype=torch.bfloat16
-                         ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor],
-                                    List[torch.Tensor]]:
-    """(dx, [dW_i], [db_i]) of the pre-tanh chain for output gradient g —
-    the remat backward (`_bwd_kernel` + `_reverse_pass`, v2) in plain
-    PyTorch: recompute the post-relu activations in the compute dtype, then
-    dW_i = a_iᵀ·g_i, db_i = Σ g_i (f32), g ← (g_i·W_keptᵀ)·(a_i > 0); the
-    skip branch of a skip layer gets no gradient."""
+def _forward_plain(xe, weights, biases, skip_layers, compute_dtype,
+                   last: bool):
+    """The chain's forward: (xc, stash, h) with xc the cast input, stash[i]
+    (i = 1..n-1) the cast post-relu, pre-concat input of layer i, and h the
+    f32 output of the last layer run — layer n-1 when `last`, else layer
+    n-2 (the remat backward does not need the chain's output)."""
     _check_layers(xe.shape[1], weights, skip_layers)
     n = len(weights)
     xc = _cast(xe, compute_dtype)
     stash: List[Optional[torch.Tensor]] = [None] * n
     h = xe.float()
-    for i in range(n - 1):
-        w, b = weights[i], biases[i]
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        if i > 0:
+            stash[i] = _cast(torch.relu(h), compute_dtype)
+        if i == n - 1 and not last:
+            break
         if i == 0:
             h = xc @ _cast(w, compute_dtype) + b.float()
-        else:
+        elif i in skip_layers:
             a = stash[i]
-            if i in skip_layers:
-                d = a.shape[1]
-                h = (a @ _cast(w[:d], compute_dtype)
-                     + xc @ _cast(w[d:], compute_dtype) + b.float())
-            else:
-                h = a @ _cast(w, compute_dtype) + b.float()
-        stash[i + 1] = _cast(torch.relu(h), compute_dtype)
+            d = a.shape[1]
+            h = (a @ _cast(w[:d], compute_dtype)
+                 + xc @ _cast(w[d:], compute_dtype) + b.float())
+        else:
+            h = stash[i] @ _cast(w, compute_dtype) + b.float()
+    return xc, stash, h
 
+
+def _reverse_plain(xc, weights, skip_layers, stash, g, need_dx, compute_dtype):
+    """The reverse pass (`_reverse_pass`, v2) from the cast input and the
+    stash: dW_i = a_iᵀ·g_i, db_i = Σ g_i (f32), g ← (g_i·W_keptᵀ)·(a_i > 0);
+    the skip branch of a skip layer gets no gradient."""
+    n = len(weights)
     g = g.float()
     dWs: List[torch.Tensor] = [None] * n
     dbs: List[torch.Tensor] = [None] * n
@@ -134,6 +122,69 @@ def imlp_chain_bwd_plain(xe: torch.Tensor, weights: Sequence[torch.Tensor],
             break
         g = (gc @ _cast(wk, compute_dtype).t()) * (stash[i] > 0)
     return dx, dWs, dbs
+
+
+def imlp_chain_fwd_plain(xe: torch.Tensor, weights: Sequence[torch.Tensor],
+                         biases: Sequence[torch.Tensor],
+                         skip_layers: Sequence[int],
+                         compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Pre-tanh chain output (B, out) — `_fwd_kernel` through `_layer_fwd`
+    (v2 split skip) of the TPU kernel, in plain PyTorch."""
+    return _forward_plain(xe, weights, biases, skip_layers, compute_dtype,
+                          last=True)[2]
+
+
+def imlp_chain_bwd_plain(xe: torch.Tensor, weights: Sequence[torch.Tensor],
+                         biases: Sequence[torch.Tensor],
+                         skip_layers: Sequence[int], g: torch.Tensor,
+                         need_dx: bool = True, compute_dtype=torch.bfloat16
+                         ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor],
+                                    List[torch.Tensor]]:
+    """(dx, [dW_i], [db_i]) of the pre-tanh chain for output gradient g —
+    the remat backward (`_bwd_kernel` + `_reverse_pass`, v2) in plain
+    PyTorch: recompute the post-relu activations in the compute dtype, then
+    walk the chain in reverse."""
+    xc, stash, _ = _forward_plain(xe, weights, biases, skip_layers,
+                                  compute_dtype, last=False)
+    return _reverse_plain(xc, weights, skip_layers, stash, g, need_dx,
+                          compute_dtype)
+
+
+def imlp_chain_fwd_stash_plain(xe: torch.Tensor,
+                               weights: Sequence[torch.Tensor],
+                               biases: Sequence[torch.Tensor],
+                               skip_layers: Sequence[int],
+                               compute_dtype=torch.bfloat16
+                               ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """(out, stash) — `_fwd_kernel_stash` in plain PyTorch: the chain output
+    and, for layers 1..n-1, the (B, width) post-relu, pre-concat input in
+    the compute dtype (held as f32 values), the very cast the remat backward
+    makes."""
+    _, stash, h = _forward_plain(xe, weights, biases, skip_layers,
+                                 compute_dtype, last=True)
+    return h, stash[1:]
+
+
+def imlp_chain_bwd_stash_plain(xe: torch.Tensor,
+                               weights: Sequence[torch.Tensor],
+                               biases: Sequence[torch.Tensor],
+                               skip_layers: Sequence[int],
+                               stash: Sequence[torch.Tensor], g: torch.Tensor,
+                               need_dx: bool = True,
+                               compute_dtype=torch.bfloat16
+                               ) -> Tuple[Optional[torch.Tensor],
+                                          List[torch.Tensor],
+                                          List[torch.Tensor]]:
+    """(dx, [dW_i], [db_i]) from the forward's stash, no recompute —
+    `_bwd_kernel_stash` in plain PyTorch.  The skip input is cast again
+    from xe."""
+    _check_layers(xe.shape[1], weights, skip_layers)
+    if len(stash) != len(weights) - 1:
+        raise ValueError(f"need {len(weights) - 1} stash layers, "
+                         f"got {len(stash)}")
+    return _reverse_plain(_cast(xe, compute_dtype), weights, skip_layers,
+                          [None, *(a.float() for a in stash)], g, need_dx,
+                          compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +214,14 @@ def _library():
         lib.imlp_chain_fwd.restype = I
         lib.imlp_chain_bwd.argtypes = [P, P, P, P, P, I, P, P]
         lib.imlp_chain_bwd.restype = I
+        lib.imlp_chain_bwd_stash_scratch_bytes.argtypes = [P, I]
+        lib.imlp_chain_bwd_stash_scratch_bytes.restype = S
+        lib.imlp_chain_stash_elems.argtypes = [P, I]
+        lib.imlp_chain_stash_elems.restype = S
+        lib.imlp_chain_fwd_stash.argtypes = [P, P, P, P, I, P]
+        lib.imlp_chain_fwd_stash.restype = I
+        lib.imlp_chain_bwd_stash.argtypes = [P, P, P, P, P, P, I, P, P]
+        lib.imlp_chain_bwd_stash.restype = I
         lib._deflicker_typed = True
     return lib
 
@@ -212,33 +271,72 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {err}")
 
 
+def _r16(v: int) -> int:
+    return (v + 15) & ~15
+
+
+def stash_views(stash: torch.Tensor, weights: Sequence[torch.Tensor],
+                B: int) -> List[torch.Tensor]:
+    """The (B, width) view of each layer 1..n-1 in the flat bf16 stash a
+    stash forward wrote: B rows of r16(width) elements per layer, back to
+    back, the padding columns zero."""
+    views, off = [], 0
+    for w in weights[:-1]:
+        width, wp = w.shape[1], _r16(w.shape[1])
+        views.append(stash[off:off + B * wp].view(B, wp)[:, :width])
+        off += B * wp
+    return views
+
+
+def _launch_fwd(xe, weights, biases, skip_layers, with_stash: bool):
+    d = _desc(xe, weights, biases, skip_layers)
+    B = xe.shape[0]
+    out = torch.empty((B, weights[-1].shape[1]), dtype=torch.float32,
+                      device=xe.device)
+    n_stash = B * sum(_r16(w.shape[1]) for w in weights[:-1])
+    stash = (torch.empty(n_stash, dtype=torch.bfloat16, device=xe.device)
+             if with_stash else None)
+    if B == 0:
+        return out, stash
+    lib = _library()
+    if with_stash:
+        if lib.imlp_chain_stash_elems(ctypes.byref(d), B) != n_stash:
+            raise RuntimeError("stash layout of the wrapper and the kernel "
+                               "disagree")
+        err = lib.imlp_chain_fwd_stash(ctypes.byref(d), xe.data_ptr(),
+                                       out.data_ptr(), stash.data_ptr(), B,
+                                       _stream(xe.device))
+        _raise_on(err, "imlp_chain_fwd_stash")
+        launches["fwd_stash"] += 1
+    else:
+        err = lib.imlp_chain_fwd(ctypes.byref(d), xe.data_ptr(),
+                                 out.data_ptr(), B, _stream(xe.device))
+        _raise_on(err, "imlp_chain_fwd")
+        launches["fwd"] += 1
+    return out, stash
+
+
 def imlp_chain_fwd_cuda(xe: torch.Tensor, weights: Sequence[torch.Tensor],
                         biases: Sequence[torch.Tensor],
                         skip_layers: Sequence[int]) -> torch.Tensor:
     """Forward kernel launch: xe (B, E) f32, bf16 (in, out) weights, f32
     biases, all contiguous on one CUDA device -> (B, out) f32."""
-    d = _desc(xe, weights, biases, skip_layers)
-    B = xe.shape[0]
-    out = torch.empty((B, weights[-1].shape[1]), dtype=torch.float32,
-                      device=xe.device)
-    if B == 0:
-        return out
-    lib = _library()
-    err = lib.imlp_chain_fwd(ctypes.byref(d), xe.data_ptr(), out.data_ptr(),
-                             B, _stream(xe.device))
-    _raise_on(err, "imlp_chain_fwd")
-    launches["fwd"] += 1
-    return out
+    return _launch_fwd(xe, weights, biases, skip_layers, False)[0]
 
 
-def imlp_chain_bwd_cuda(xe: torch.Tensor, weights: Sequence[torch.Tensor],
-                        biases: Sequence[torch.Tensor],
-                        skip_layers: Sequence[int], g: torch.Tensor,
-                        need_dx: bool = True
-                        ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor],
-                                   List[torch.Tensor]]:
-    """Backward kernel launch (remat): same operands as the forward plus the
-    output gradient g (B, out) f32 -> (dx or None, [dW_i], [db_i]), f32."""
+def imlp_chain_fwd_stash_cuda(xe: torch.Tensor,
+                              weights: Sequence[torch.Tensor],
+                              biases: Sequence[torch.Tensor],
+                              skip_layers: Sequence[int]
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stash forward kernel launch: the operands of `imlp_chain_fwd_cuda` ->
+    (out (B, out) f32, stash): one flat bf16 buffer with the post-relu input
+    of layers 1..n-1 (`stash_views` cuts it per layer)."""
+    return _launch_fwd(xe, weights, biases, skip_layers, True)
+
+
+def _launch_bwd(xe, weights, biases, skip_layers, g, need_dx,
+                stash: Optional[torch.Tensor]):
     d = _desc(xe, weights, biases, skip_layers)
     B = xe.shape[0]
     O = weights[-1].shape[1]
@@ -246,6 +344,12 @@ def imlp_chain_bwd_cuda(xe: torch.Tensor, weights: Sequence[torch.Tensor],
             or g.device != xe.device:
         raise ValueError(f"g must be a contiguous ({B}, {O}) float32 tensor "
                          f"on {xe.device}")
+    if stash is not None:
+        n_stash = B * sum(_r16(w.shape[1]) for w in weights[:-1])
+        if stash.dtype != torch.bfloat16 or stash.shape != (n_stash,) \
+                or not stash.is_contiguous() or stash.device != xe.device:
+            raise ValueError(f"stash must be the flat ({n_stash},) bfloat16 "
+                             f"buffer of the stash forward on {xe.device}")
     shapes = [tuple(w.shape) for w in weights]
     n_w = sum(a * b for a, b in shapes)
     grads = torch.empty(n_w + sum(b for _, b in shapes), dtype=torch.float32,
@@ -258,15 +362,26 @@ def imlp_chain_bwd_cuda(xe: torch.Tensor, weights: Sequence[torch.Tensor],
             dx.zero_()
     else:
         lib = _library()
-        scratch = torch.empty(
-            lib.imlp_chain_bwd_scratch_bytes(ctypes.byref(d), B),
-            dtype=torch.uint8, device=xe.device)
-        err = lib.imlp_chain_bwd(
-            ctypes.byref(d), xe.data_ptr(), g.data_ptr(),
-            dx.data_ptr() if dx is not None else None, grads.data_ptr(), B,
-            scratch.data_ptr(), _stream(xe.device))
-        _raise_on(err, "imlp_chain_bwd")
-        launches["bwd"] += 1
+        dx_ptr = dx.data_ptr() if dx is not None else None
+        if stash is None:
+            scratch = torch.empty(
+                lib.imlp_chain_bwd_scratch_bytes(ctypes.byref(d), B),
+                dtype=torch.uint8, device=xe.device)
+            err = lib.imlp_chain_bwd(
+                ctypes.byref(d), xe.data_ptr(), g.data_ptr(), dx_ptr,
+                grads.data_ptr(), B, scratch.data_ptr(), _stream(xe.device))
+            _raise_on(err, "imlp_chain_bwd")
+            launches["bwd"] += 1
+        else:
+            scratch = torch.empty(
+                lib.imlp_chain_bwd_stash_scratch_bytes(ctypes.byref(d), B),
+                dtype=torch.uint8, device=xe.device)
+            err = lib.imlp_chain_bwd_stash(
+                ctypes.byref(d), xe.data_ptr(), g.data_ptr(),
+                stash.data_ptr(), dx_ptr, grads.data_ptr(), B,
+                scratch.data_ptr(), _stream(xe.device))
+            _raise_on(err, "imlp_chain_bwd_stash")
+            launches["bwd_stash"] += 1
     dWs, dbs, off = [], [], 0
     for a, b in shapes:
         dWs.append(grads[off:off + a * b].view(a, b))
@@ -277,17 +392,49 @@ def imlp_chain_bwd_cuda(xe: torch.Tensor, weights: Sequence[torch.Tensor],
     return dx, dWs, dbs
 
 
+def imlp_chain_bwd_cuda(xe: torch.Tensor, weights: Sequence[torch.Tensor],
+                        biases: Sequence[torch.Tensor],
+                        skip_layers: Sequence[int], g: torch.Tensor,
+                        need_dx: bool = True
+                        ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor],
+                                   List[torch.Tensor]]:
+    """Backward kernel launch (remat): same operands as the forward plus the
+    output gradient g (B, out) f32 -> (dx or None, [dW_i], [db_i]), f32."""
+    return _launch_bwd(xe, weights, biases, skip_layers, g, need_dx, None)
+
+
+def imlp_chain_bwd_stash_cuda(xe: torch.Tensor,
+                              weights: Sequence[torch.Tensor],
+                              biases: Sequence[torch.Tensor],
+                              skip_layers: Sequence[int],
+                              stash: torch.Tensor, g: torch.Tensor,
+                              need_dx: bool = True
+                              ) -> Tuple[Optional[torch.Tensor],
+                                         List[torch.Tensor],
+                                         List[torch.Tensor]]:
+    """Backward kernel launch (stash): the operands of `imlp_chain_bwd_cuda`
+    plus the flat stash of `imlp_chain_fwd_stash_cuda` on the same operands;
+    no recompute, gradients bit-identical to the remat backward's."""
+    if stash is None:
+        raise ValueError("the stash backward needs the stash of the stash "
+                         "forward")
+    return _launch_bwd(xe, weights, biases, skip_layers, g, need_dx, stash)
+
+
 # ---------------------------------------------------------------------------
 # autograd
 # ---------------------------------------------------------------------------
 
 class _FusedChain(torch.autograd.Function):
-    """The custom VJP of `_chain` (imlp_kernel.py:384-501) as an autograd
-    Function: kernels for CUDA tensors, the plain twins for CPU tensors."""
+    """The custom VJPs `_chain` and `_chain_stash` (imlp_kernel.py:384-581)
+    as one autograd Function: kernels for CUDA tensors, the plain twins for
+    CPU tensors; with `stash_bwd` the forward's stash is saved for the
+    backward, else the backward recomputes."""
 
     @staticmethod
-    def forward(ctx, xe, skip_layers, compute_dtype, *params):
+    def forward(ctx, xe, skip_layers, compute_dtype, stash_bwd, *params):
         ws, bs = list(params[0::2]), list(params[1::2])
+        stash = []
         if xe.is_cuda:
             if compute_dtype != torch.bfloat16:
                 raise ValueError("the CUDA chain kernel computes in bfloat16 "
@@ -295,39 +442,64 @@ class _FusedChain(torch.autograd.Function):
             xe = xe.float().contiguous()
             ws = [w.to(torch.bfloat16).contiguous() for w in ws]
             bs = [b.float().contiguous() for b in bs]
-            out = imlp_chain_fwd_cuda(xe, ws, bs, skip_layers)
+            if stash_bwd:
+                out, flat = imlp_chain_fwd_stash_cuda(xe, ws, bs, skip_layers)
+                stash = [flat]
+            else:
+                out = imlp_chain_fwd_cuda(xe, ws, bs, skip_layers)
+        elif stash_bwd:
+            out, stash = imlp_chain_fwd_stash_plain(xe, ws, bs, skip_layers,
+                                                    compute_dtype)
         else:
             out = imlp_chain_fwd_plain(xe, ws, bs, skip_layers, compute_dtype)
-        ctx.save_for_backward(xe, *ws, *bs)
+        ctx.save_for_backward(xe, *ws, *bs, *stash)
+        ctx.n_layers = len(ws)
         ctx.skip_layers = tuple(skip_layers)
         ctx.compute_dtype = compute_dtype
+        ctx.stash_bwd = bool(stash_bwd)
         return out
 
     @staticmethod
     def backward(ctx, g):
         xe, *rest = ctx.saved_tensors
-        n = len(rest) // 2
-        ws, bs = rest[:n], rest[n:]
+        n = ctx.n_layers
+        ws, bs, stash = rest[:n], rest[n:2 * n], rest[2 * n:]
         need_dx = ctx.needs_input_grad[0]
+        sk, cdt = ctx.skip_layers, ctx.compute_dtype
         if xe.is_cuda:
-            dx, dWs, dbs = imlp_chain_bwd_cuda(
-                xe, ws, bs, ctx.skip_layers, g.float().contiguous(), need_dx)
+            g = g.float().contiguous()
+            if ctx.stash_bwd:
+                dx, dWs, dbs = imlp_chain_bwd_stash_cuda(xe, ws, bs, sk,
+                                                         stash[0], g, need_dx)
+            else:
+                dx, dWs, dbs = imlp_chain_bwd_cuda(xe, ws, bs, sk, g, need_dx)
+        elif ctx.stash_bwd:
+            dx, dWs, dbs = imlp_chain_bwd_stash_plain(xe, ws, bs, sk, stash,
+                                                      g, need_dx, cdt)
         else:
-            dx, dWs, dbs = imlp_chain_bwd_plain(
-                xe, ws, bs, ctx.skip_layers, g, need_dx, ctx.compute_dtype)
+            dx, dWs, dbs = imlp_chain_bwd_plain(xe, ws, bs, sk, g, need_dx,
+                                                cdt)
         grads = []
         for dW, db in zip(dWs, dbs):
             grads += [dW, db]
-        return (dx, None, None, *grads)
+        return (dx, None, None, None, *grads)
 
 
 def fused_imlp_linear_chain(params, xe: torch.Tensor,
                             skip_layers: Sequence[int] = (),
-                            compute_dtype=torch.bfloat16) -> torch.Tensor:
+                            compute_dtype=torch.bfloat16,
+                            stash_bwd: bool = False) -> torch.Tensor:
     """Differentiable fused chain on PRE-ENCODED input xe (B, E): returns the
     pre-tanh output (B, out).  params: list of {"w": (in, out), "b": (out,)}.
-    A ragged B needs no padding: the kernel masks the edge tile."""
+    A ragged B needs no padding: the kernel masks the edge tile.
+
+    stash_bwd=False: the backward recomputes the forward per tile (no
+    activation memory between forward and backward).  stash_bwd=True: the
+    forward writes the bf16 activation stash, autograd keeps it, and the
+    backward reads it instead of recomputing; the gradients are
+    bit-identical."""
     flat = []
     for layer in params:
         flat += [layer["w"], layer["b"]]
-    return _FusedChain.apply(xe, tuple(skip_layers), compute_dtype, *flat)
+    return _FusedChain.apply(xe, tuple(skip_layers), compute_dtype,
+                             bool(stash_bwd), *flat)

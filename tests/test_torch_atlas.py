@@ -176,14 +176,19 @@ def test_non_finite_loss_dumps_rescue(setup, tmp_path):
     assert ck["iteration"] == 3 and set(ck["params"]) == {"mapping1", "atlas"}
 
 
-def test_select_imlp_apply_routes():
+def test_select_imlp_apply_routes(monkeypatch):
     from deflicker_torch.models.imlp import imlp_apply, imlp_apply_fused
 
+    monkeypatch.delenv("DEFLICKER_IMLP_STASH", raising=False)
     assert teng.select_imlp_apply(True, "default") is imlp_apply_fused
     assert teng.select_imlp_apply(True, "highest") is imlp_apply
     assert teng.select_imlp_apply(False, "default") is imlp_apply
-    with pytest.raises(NotImplementedError):
-        teng.build_specs(AtlasConfig(), dual=True)
+    # the dual specs build: mapping2 and alpha beside mapping1 and the atlas
+    single, dual = teng.build_specs(AtlasConfig()), teng.build_specs(
+        AtlasConfig(), dual=True)
+    assert not single.dual and single.mapping2 is None and single.alpha is None
+    assert dual.dual and dual[:2] == single[:2]
+    assert dual.mapping2.num_layers == 4 and dual.alpha.output_dim == 1
 
 
 def test_resume_from_host_state_continues_the_fit(setup):

@@ -50,6 +50,30 @@ def test_cli_args_to_configs():
     assert acfg.fit_precision == "highest"
 
 
+@pytest.mark.parametrize("argv", [
+    ["--video_name", "x.mp4", "--class_name", "dog"],
+    ["--video_name", "x.mp4", "--class_name", "portrait",
+     "--mask_provider", "grabcut"],
+    ["--video_frame_folder", "frames", "--class_name", "anything",
+     "--mask_provider", "maskrcnn", "--down", "2"],
+    ["--video_name", "x.mp4"]])
+def test_cli_dual_flags_match_jax(argv):
+    """--class_name and --mask_provider parse into the same PipelineConfig
+    fields as the JAX package's CLI; no class means the single atlas."""
+    from deflicker_tpu.cli.main import args_to_configs as jargs
+    from deflicker_tpu.cli.main import build_parser as jparser
+    from deflicker_torch.cli.main import args_to_configs, build_parser
+
+    cfg, _ = args_to_configs(build_parser().parse_args(argv))
+    cfg_j, _ = jargs(jparser().parse_args(argv))
+    for name in ("class_name", "mask_provider", "down", "video_name",
+                 "video_frame_folder"):
+        assert getattr(cfg, name) == getattr(cfg_j, name), name
+    assert (cfg.class_name is None) == ("--class_name" not in argv)
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["--mask_provider", "sam"])
+
+
 def test_checkpoint_roundtrip_and_jax_reads_it(tmp_path):
     """The port's checkpoints hold plain numpy only: the JAX package's
     loader reads them, and tensors come back as owned copies."""

@@ -30,6 +30,14 @@ CASES = {
                        skip_layers=(4, 7)), 3001),
     "odd-widths": (dict(input_dim=5, output_dim=1, hidden_dim=40,
                         use_positional=False, num_layers=5, skip_layers=(2,)), 130),
+    # the dual fit's other two networks: the fewest layers, and output width 1
+    "mapping2-256": (dict(input_dim=3, output_dim=2, hidden_dim=256,
+                          use_positional=False, num_layers=4, skip_layers=()), 2049),
+    "alpha-256": (dict(input_dim=3, output_dim=1, hidden_dim=256,
+                       use_positional=True, positional_dim=5, num_layers=8,
+                       skip_layers=()), 1111),
+    "two-layers": (dict(input_dim=3, output_dim=2, hidden_dim=48,
+                        use_positional=False, num_layers=2, skip_layers=()), 65),
 }
 
 
@@ -81,6 +89,93 @@ def test_kernels_match_plain(name, cuda_device):
             assert _rel(a, b) < 2e-2
 
 
+def _operands(name, device):
+    spec, params, x, g = _case(name, device)
+    xe = timlp.positional_encoding(x, spec.positional_dim) if spec.use_positional else x
+    ws = [p["w"].detach() for p in params]
+    bs = [p["b"].detach() for p in params]
+    wb = [w.to(torch.bfloat16).contiguous() for w in ws]
+    return xe.contiguous(), ws, wb, bs, g, spec.skip_layers
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_stash_kernels_match_plain_and_remat(name, cuda_device):
+    """The stash pair on the card.  Forward: output bit-equal to the remat
+    forward's (the same device code), stash within one bf16 step of the
+    plain twin's on all but a few entries (relative Frobenius 1e-2, as the
+    output).  Backward: every gradient bit-equal to the remat backward's
+    (the stash holds the very cast the recompute makes), and within 2e-2 of
+    the plain stash twin fed the kernel's own stash."""
+    xe, ws, wb, bs, g, sk = _operands(name, cuda_device)
+    B = xe.shape[0]
+    K.reset_launches()
+    y, stash = K.imlp_chain_fwd_stash_cuda(xe, wb, bs, sk)
+    torch.cuda.synchronize()
+    assert K.launches["fwd_stash"] == 1 and K.launches["fwd"] == 0
+    assert torch.equal(y, K.imlp_chain_fwd_cuda(xe, wb, bs, sk))
+    y_p, stash_p = K.imlp_chain_fwd_stash_plain(xe, ws, bs, sk)
+    assert _rel(y, y_p) < 1e-2
+    views = K.stash_views(stash, wb, B)
+    assert len(views) == len(stash_p) == len(ws) - 1
+    for v, sp in zip(views, stash_p):
+        assert v.shape == sp.shape and _rel(v.float(), sp) < 1e-2
+    # padding columns of the flat stash are zero
+    off = 0
+    for w in wb[:-1]:
+        wp = (w.shape[1] + 15) // 16 * 16
+        assert not stash[off:off + B * wp].view(B, wp)[:, w.shape[1]:].any()
+        off += B * wp
+    for need_dx in (True, False):
+        dx, dW, db = K.imlp_chain_bwd_stash_cuda(xe, wb, bs, sk, stash, g, need_dx)
+        dx_r, dW_r, db_r = K.imlp_chain_bwd_cuda(xe, wb, bs, sk, g, need_dx)
+        torch.cuda.synchronize()
+        assert (dx is None) == (not need_dx)
+        if need_dx:
+            assert torch.equal(dx, dx_r)
+        for a, b in zip(dW + db, dW_r + db_r):
+            assert torch.equal(a, b)
+        dx_p, dW_p, db_p = K.imlp_chain_bwd_stash_plain(
+            xe, ws, bs, sk, [v.float() for v in views], g, need_dx)
+        if need_dx:
+            assert _rel(dx, dx_p) < 2e-2
+        for a, b in zip(dW + db, dW_p + db_p):
+            assert _rel(a, b) < 2e-2
+    assert K.launches["bwd_stash"] == 2 and K.launches["bwd"] == 2
+
+
+def test_stash_autograd_on_cuda(cuda_device):
+    """imlp_apply_fused(stash_bwd=True) through autograd launches the stash
+    pair once each and no remat kernel, and gives the remat path's output
+    and gradients bit for bit."""
+    spec, params, x, g = _case("atlas-256", cuda_device)
+    grads = []
+    for stash in (False, True):
+        for p in params:
+            p["w"].grad = p["b"].grad = None
+        K.reset_launches()
+        xg = x.clone().requires_grad_()
+        y = timlp.imlp_apply_fused(params, xg, spec, stash_bwd=stash)
+        (y * g).sum().backward()
+        want = ({"fwd": 0, "bwd": 0, "fwd_stash": 1, "bwd_stash": 1} if stash
+                else {"fwd": 1, "bwd": 1, "fwd_stash": 0, "bwd_stash": 0})
+        assert K.launches == want
+        grads.append([y.detach(), xg.grad] + [p[k].grad.clone() for p in params
+                                              for k in ("w", "b")])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_stash_wrapper_rejects_bad_stash(cuda_device):
+    xe, ws, wb, bs, g, sk = _operands("mapping-64", cuda_device)
+    _, stash = K.imlp_chain_fwd_stash_cuda(xe, wb, bs, sk)
+    with pytest.raises(ValueError, match="stash"):
+        K.imlp_chain_bwd_stash_cuda(xe, wb, bs, sk, stash[:-16], g)
+    with pytest.raises(ValueError, match="stash"):
+        K.imlp_chain_bwd_stash_cuda(xe, wb, bs, sk, stash.float(), g)
+    with pytest.raises(ValueError, match="stash"):
+        K.imlp_chain_bwd_stash_cuda(xe, wb, bs, sk, None, g)
+
+
 def test_backward_is_deterministic(cuda_device):
     """Fixed-order sums (no atomics): two backward launches agree bitwise."""
     spec, params, x, g = _case("atlas-256", cuda_device)
@@ -101,7 +196,7 @@ def test_autograd_on_cuda_matches_cpu_twin(cuda_device):
     K.reset_launches()
     xg = x.clone().requires_grad_()
     (timlp.imlp_apply_fused(params, xg, spec) * g).sum().backward()
-    assert K.launches == {"fwd": 1, "bwd": 1}
+    assert K.launches == {"fwd": 1, "bwd": 1, "fwd_stash": 0, "bwd_stash": 0}
     cpu = [{k: v.detach().cpu().requires_grad_() for k, v in p.items()}
            for p in params]
     xc = x.cpu().requires_grad_()

@@ -1,6 +1,7 @@
-"""Port vs JAX package: the IMLP and the fused chain (plain twin of the CUDA
-kernel on the CPU; the JAX side runs its Pallas kernel in interpret mode
-with the production bodies: bf16 compute, v2, pipe)."""
+"""Port vs JAX package: the IMLP and the fused chain, remat and stash pair
+(plain twins of the CUDA kernels on the CPU; the JAX side runs its Pallas
+kernels in interpret mode with the production bodies: bf16 compute, v2,
+pipe for the remat pair)."""
 
 import numpy as np
 import pytest
@@ -187,9 +188,141 @@ def test_cpu_tensor_takes_plain_twin():
     _, tspec, _, host, x, tgt = _setup("mapping", 40, 6)
     K.reset_launches()
     _torch_chain_grads(tspec, host, x, tgt, torch.bfloat16)
-    assert K.launches == {"fwd": 0, "bwd": 0}
+    assert K.launches == {"fwd": 0, "bwd": 0, "fwd_stash": 0, "bwd_stash": 0}
     ws = [torch.tensor(l["w"]).to(torch.bfloat16) for l in host]
     bs = [torch.tensor(l["b"]) for l in host]
     with pytest.raises(ValueError):
         K.imlp_chain_fwd_cuda(torch.tensor(x), ws, bs, ())
 
+
+
+# ---------------------------------------------------------------------------
+# the stash pair: the forward writes its activations, the backward reads them
+# ---------------------------------------------------------------------------
+
+# a no-skip and a skip network, tile multiples and ragged batches; the
+# 4-layer mapping2 and the one-output alpha are the dual fit's other networks
+STASH_SPECS = dict(SPECS,
+                   mapping2=dict(input_dim=3, output_dim=2, hidden_dim=64,
+                                 use_positional=False, num_layers=4,
+                                 skip_layers=()),
+                   alpha=dict(input_dim=3, output_dim=1, hidden_dim=64,
+                              use_positional=True, positional_dim=5,
+                              num_layers=8, skip_layers=()))
+STASH_CASES = [("mapping", 256), ("atlas", 256), ("atlas", 77),
+               ("mapping2", 130), ("alpha", 201)]
+
+
+def _stash_setup(name, B, seed):
+    jspec = jimlp.IMLPSpec(**STASH_SPECS[name])
+    tspec = timlp.IMLPSpec(**STASH_SPECS[name])
+    jparams = jimlp.imlp_init(jax.random.key(seed), jspec)
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, (B, jspec.input_dim)).astype(np.float32)
+    tgt = rng.uniform(-1, 1, (B, jspec.output_dim)).astype(np.float32)
+    host = [{k: np.asarray(v) for k, v in l.items()} for l in jparams]
+    return jspec, tspec, jparams, host, x, tgt
+
+
+@pytest.mark.parametrize("name,B", STASH_CASES)
+def test_stash_chain_matches_pallas_stash(name, B):
+    """The port's stash pair (plain twins, through autograd) vs the JAX
+    package's `fused_imlp_linear_chain(stash_bwd=True, interpret=True,
+    compute_dtype=bf16)`: output, every parameter gradient and the input
+    gradient.  Both round the same operands to bf16 and accumulate in f32;
+    a different f32 sum can round a bf16 activation or gradient the other
+    way, so relative Frobenius 5e-3 (output) and 2e-2 (grads)."""
+    jspec, tspec, jparams, host, x, tgt = _stash_setup(name, B, 7)
+
+    def loss(p, xx):
+        xe = (jimlp.positional_encoding(xx, jspec.positional_dim)
+              if jspec.use_positional else xx)
+        y = jnp.tanh(jchain(p, xe, jspec, tile=128, interpret=True,
+                            compute_dtype=jnp.bfloat16, stash_bwd=True,
+                            v2=True))
+        return jnp.sum(y * tgt), y
+
+    (_, y_j), (gp_j, gx_j) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(jparams, jnp.asarray(x))
+
+    params = imlp_params_from_jax(host)
+    xt = torch.tensor(x, requires_grad=True)
+    y_t = timlp.imlp_apply_fused(params, xt, tspec, stash_bwd=True)
+    (y_t * torch.tensor(tgt)).sum().backward()
+    assert y_t.shape == (B, tspec.output_dim)
+    assert _rel(y_t.detach().numpy(), y_j) < 5e-3
+    assert _rel(xt.grad.numpy(), gx_j) < 2e-2
+    for lt, lj in zip(params, gp_j):
+        assert _rel(lt["w"].grad.numpy(), lj["w"]) < 2e-2
+        assert _rel(lt["b"].grad.numpy(), lj["b"]) < 2e-2
+
+
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("name,B", STASH_CASES)
+def test_stash_grads_equal_remat_grads_bitwise(name, B, need_dx):
+    """The pair's contract on the port's CPU path: the stash holds the very
+    cast the remat backward makes (one shared forward, one shared reverse
+    pass), so output, dx, every dW and every db are bit-equal; the stash
+    has one (B, width) entry per layer 1..n-1, the pre-concat activation of
+    a skip layer included, all values bf16-representable and >= 0."""
+    _, tspec, _, host, x, tgt = _stash_setup(name, B, 8)
+    ws = [torch.tensor(l["w"]) for l in host]
+    bs = [torch.tensor(l["b"]) for l in host]
+    xe = torch.tensor(x)
+    if tspec.use_positional:
+        xe = timlp.positional_encoding(xe, tspec.positional_dim)
+    g = torch.tensor(tgt)
+    sk = tspec.skip_layers
+    out, stash = K.imlp_chain_fwd_stash_plain(xe, ws, bs, sk)
+    assert torch.equal(out, K.imlp_chain_fwd_plain(xe, ws, bs, sk))
+    assert len(stash) == tspec.num_layers - 1
+    for a, w in zip(stash, ws[:-1]):
+        assert a.shape == (B, w.shape[1])       # pre-concat: no skip columns
+        assert torch.equal(a, a.to(torch.bfloat16).float()) and a.min() >= 0
+    dx_s, dW_s, db_s = K.imlp_chain_bwd_stash_plain(xe, ws, bs, sk, stash, g,
+                                                    need_dx)
+    dx_r, dW_r, db_r = K.imlp_chain_bwd_plain(xe, ws, bs, sk, g, need_dx)
+    assert (dx_s is None) == (not need_dx) == (dx_r is None)
+    if need_dx:
+        assert torch.equal(dx_s, dx_r)
+    for a, b in zip(dW_s + db_s, dW_r + db_r):
+        assert torch.equal(a, b)
+    # a bf16 stash tensor (what the kernel stores) gives the same gradients
+    dx_h, dW_h, _ = K.imlp_chain_bwd_stash_plain(
+        xe, ws, bs, sk, [a.to(torch.bfloat16) for a in stash], g, need_dx)
+    assert all(torch.equal(a, b) for a, b in zip(dW_h, dW_s))
+    with pytest.raises(ValueError, match="stash"):
+        K.imlp_chain_bwd_stash_plain(xe, ws, bs, sk, stash[1:], g, need_dx)
+
+
+def test_stash_autograd_equals_remat_autograd():
+    """`imlp_apply_fused(stash_bwd=True)` and `(stash_bwd=False)` through
+    autograd on the CPU: bit-equal output and gradients, f32 compute too;
+    no kernel launch is counted."""
+    for name, tdt in (("atlas", torch.bfloat16), ("mapping2", torch.float32)):
+        _, tspec, _, host, x, tgt = _stash_setup(name, 90, 9)
+        got = []
+        K.reset_launches()
+        for stash in (False, True):
+            params = imlp_params_from_jax(host)
+            xt = torch.tensor(x, requires_grad=True)
+            y = timlp.imlp_apply_fused(params, xt, tspec, compute_dtype=tdt,
+                                       stash_bwd=stash)
+            (y * torch.tensor(tgt)).sum().backward()
+            got.append([y.detach(), xt.grad] + [l[k].grad for l in params
+                                                for k in ("w", "b")])
+        assert all(torch.equal(a, b) for a, b in zip(*got))
+        assert not any(K.launches.values())
+
+
+def test_stash_views_cut_the_flat_buffer():
+    """`stash_views` (the layout the CUDA stash forward writes): B rows of
+    r16(width) per layer, back to back, each view the (B, width) left
+    part."""
+    B = 5
+    ws = [torch.zeros(3, 40), torch.zeros(40, 64), torch.zeros(64, 2)]
+    flat = torch.arange(B * (48 + 64), dtype=torch.float32)
+    v = K.stash_views(flat, ws, B)
+    assert [tuple(a.shape) for a in v] == [(B, 40), (B, 64)]
+    assert v[0][1, 0] == 48 and v[0][4, 39] == 4 * 48 + 39
+    assert v[1][0, 0] == B * 48 and v[1][2, 3] == B * 48 + 2 * 64 + 3

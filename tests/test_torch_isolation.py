@@ -76,6 +76,9 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_main.main(["--video_frame_folder", str(tmp_path), "--gpu", "0"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_main.main(["--video_frame_folder", str(tmp_path), "--class_name",
+                       "dog", "--mask_provider", "grabcut"])   # the dual path
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         compute_video_metrics(tmp_path, tmp_path)
     frames, flows = np.zeros((1, 4, 4, 3)), np.zeros((1, 4, 4, 2))
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -125,8 +125,71 @@ def test_refuses_what_the_slice_does_not_port(tiny_video_dir):
     long_cfg = dataclasses.replace(AtlasConfig(), maximum_number_of_frames=3)
     with pytest.raises(NotImplementedError, match="not truncated"):
         run_stage1(frames, cfg, long_cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="dual-atlas"):
-        run_stage1(frames, cfg, AtlasConfig(), "cpu", dual=True)
+    with pytest.raises(NotImplementedError, match="not truncated"):
+        run_stage1(frames, cfg, long_cfg, "cpu", dual=True)
+
+
+def test_run_stage1_dual_fits_four_networks(tiny_video_dir):
+    """run_stage1(dual=True) no longer refuses: with `_seg` masks on disk it
+    loads them, pretrains both mappings, fits mapping1, mapping2, atlas and
+    alpha, and writes the texture set; the single-atlas run on the same
+    seed draws the same init and pretrain streams as before (its own three
+    generators), so its mapping1 checkpoint does not depend on the dual
+    path's extra generator."""
+    import cv2
+
+    from deflicker_torch.cli.pipeline import _generators, run_stage1
+    from deflicker_torch.config import AtlasConfig, PipelineConfig
+    from deflicker_torch.utils.checkpoint import load_checkpoint
+
+    tmp, frames = tiny_video_dir
+    seg = frames.parent / "vid_seg"
+    seg.mkdir()
+    mask = np.zeros((48, 64), np.uint8)
+    mask[10:30, 20:50] = 255
+    for t in range(5):
+        cv2.imwrite(str(seg / f"{t:05d}.png"), mask)
+    cfg = PipelineConfig(video_frame_folder=str(frames), root=str(frames.parent),
+                         results_root=str(tmp / "r"), down=2,
+                         ckpt_raft=str(tmp / "missing.pth"))
+    tiny = dataclasses.replace(
+        AtlasConfig(), **dict(TINY, iters_num=12, evaluate_every=11,
+                              stop_global_rigidity=4,
+                              stop_bootstrapping_iteration=8),
+        number_of_channels_alpha=32, number_of_layers_alpha=4,
+        number_of_channels_mapping2=32, number_of_layers_mapping2=3)
+    s1 = run_stage1(frames, cfg, tiny, "cpu", dual=True)
+    assert s1["iterations"] == 12 and np.isfinite(s1["psnr"])
+    assert s1["res"] == (24, 32)
+    folder = tmp / "r" / "vid" / "stage_1"
+    ck = load_checkpoint(folder / "checkpoint")
+    assert ck["dual"] is True
+    assert set(ck["params"]) == {"mapping1", "mapping2", "atlas", "alpha"}
+    assert len(ck["params"]["mapping2"]) == 3 and len(ck["params"]["alpha"]) == 4
+    assert ck["params"]["alpha"][-1]["w"].shape == (32, 1)
+    for f in ("texture1.png", "texture2.png", "texture1_marked.png"):
+        assert (folder / "texture" / f).exists(), f
+    assert len(sorted((folder / "texture" / "alpha").glob("*.png"))) == 5
+    # the second pretrain drives mapping2 (4 layers at the default, here 3)
+    # towards uv = 0.8 * xy like the first
+    from deflicker_torch.atlas import build_specs, pretrain_mapping
+    from deflicker_torch.models.imlp import imlp_apply, imlp_init
+
+    spec2 = build_specs(tiny, dual=True).mapping2
+    p2 = imlp_init(spec2, torch.Generator().manual_seed(0))
+    xyt = torch.rand((256, 3), generator=torch.Generator().manual_seed(1)) * 2 - 1
+
+    def err():
+        with torch.no_grad():
+            return float((imlp_apply(p2, xyt, spec2) - 0.8 * xyt[:, :2]).abs().mean())
+
+    e0 = err()
+    pretrain_mapping(p2, spec2, torch.Generator().manual_seed(2), 5, 24, 32,
+                     0.8, pretrain_iters=40, batch=512, lr=1e-3)
+    assert err() < 0.5 * e0
+    # four generators, the first three seeded as the single-atlas run's
+    gens = _generators(3, torch.device("cpu"))
+    assert [g.initial_seed() for g in gens] == [3, 4, 5, 6]
 
 
 def test_stage1_fit_tracks_jax_from_same_init(tiny_video_dir):
