@@ -262,10 +262,19 @@ def phase_chain_kernels(device) -> dict:
     return rows
 
 
+# The four chain calls of one dual fit step: (network, coordinate variants
+# per sample while the global rigidity term is on, and after it stops, whether
+# the call needs dx).  A mapping is queried at 7 variants plus 2 for global
+# rigidity, the atlas at fg and bg quadrants x base / x+1 / y+1, alpha at 5.
+DUAL_CALLS = (("mapping1", 9, 7, False), ("mapping2", 9, 7, False),
+              ("atlas", 6, 6, True), ("alpha", 5, 5, False))
+
+
 def dual_kernel_shapes(device):
-    """The four chain calls of one dual fit step at the default AtlasConfig:
-    mapping1 and mapping2 at 9 coordinate variants x 10,000 samples, the
-    atlas at 6 (fg and bg quadrants x base / x+1 / y+1), alpha at 5."""
+    """The chain calls of the dual fit at the default AtlasConfig (10,000
+    samples a step): the four of a step with global rigidity first (90,000,
+    90,000, 60,000 and 50,000 rows), then the two mappings at the 70,000
+    rows they are called with once global rigidity has stopped."""
     import torch
 
     from deflicker_torch.atlas.engine import build_specs
@@ -276,11 +285,12 @@ def dual_kernel_shapes(device):
     specs = build_specs(cfg, dual=True)
     gen = torch.Generator().manual_seed(1)
     out = []
-    for name, spec, variants, need_dx in (
-            ("mapping1", specs.mapping1, 9, False),
-            ("mapping2", specs.mapping2, 9, False),
-            ("atlas", specs.atlas, 6, True),
-            ("alpha", specs.alpha, 5, False)):
+    calls = [(name, early, True, need_dx)
+             for name, early, _, need_dx in DUAL_CALLS]
+    calls += [(f"{name}-late", late, False, need_dx)
+              for name, early, late, need_dx in DUAL_CALLS if late != early]
+    for name, variants, with_global, need_dx in calls:
+        spec = getattr(specs, name.removesuffix("-late"))
         rows = variants * cfg.samples_batch
         params = imlp_init(spec, gen, device)
         x = (torch.rand((rows, spec.input_dim), generator=gen) * 2 - 1).to(device)
@@ -290,7 +300,8 @@ def dual_kernel_shapes(device):
         out.append(dict(name=name, x=x.contiguous(),
                         ws=[p["w"].detach() for p in params],
                         bs=[p["b"].detach() for p in params], g=g,
-                        skips=tuple(spec.skip_layers), need_dx=need_dx))
+                        skips=tuple(spec.skip_layers), need_dx=need_dx,
+                        with_global=with_global))
     return out
 
 
@@ -349,9 +360,12 @@ def library_stash_chain(case, kind: str):
 
 
 def phase_stash_kernels(device) -> dict:
-    """The stash pair at the dual fit's four shapes: against the plain twins
-    (the tolerances of the remat pair), bit-equal to the remat pair, then
-    timed beside its bound, the plain twins and the library chain."""
+    """The stash pair at every shape the dual fit calls it with: against the
+    plain twins (the tolerances of the remat pair), bit-equal to the remat
+    pair, the wrapper's stash layout against the kernel's, then timed beside
+    its bound, the plain twins and the library chain."""
+    import ctypes
+
     import torch
 
     from deflicker_torch.ops.cuda import imlp_kernel as K
@@ -364,6 +378,12 @@ def phase_stash_kernels(device) -> dict:
 
         y, stash = K.imlp_chain_fwd_stash_cuda(x, wb, bs, sk)
         torch.cuda.synchronize()
+        in_kernel = K._library().imlp_chain_stash_elems(
+            ctypes.byref(K._desc(x, wb, bs, sk)), B)
+        if in_kernel != stash.numel():
+            raise AssertionError(f"fwd_stash {name}: the wrapper lays out "
+                                 f"{stash.numel()} stash elements, the kernel "
+                                 f"{in_kernel}")
         y_p, stash_p = K.imlp_chain_fwd_stash_plain(x, ws, bs, sk)
         views = K.stash_views(stash, wb, B)
         pairs_f = [(y, y_p)] + list(zip(views, stash_p))
@@ -407,7 +427,7 @@ def phase_stash_kernels(device) -> dict:
                 else (lambda: K.imlp_chain_bwd_cuda(x, wb, bs, sk, g, need_dx))
             rows[key].append(dict(
                 shape=name, rows=int(B), max_abs_err=aerr, rel_err=err,
-                bit_equal_to_remat=True,
+                bit_equal_to_remat=True, with_global=case["with_global"],
                 ms=cuda_ms(run), remat_ms=cuda_ms(remat), plain_ms=cuda_ms(plain),
                 library_ms=cuda_ms(library_stash_chain(case, kind)),
                 bound_ms=1e3 * max(t_ops, t_bytes),
@@ -723,15 +743,15 @@ def phase_raft_pipeline(device, frames: Path) -> dict:
 
 
 def reckoned_stash_bytes(batch: int) -> dict:
-    """bf16 stash of one dual fit step, all four networks alive at once
-    between forward and backward: rows x the widths of layers 0..n-2."""
+    """bf16 stash of one dual fit step with global rigidity (the largest),
+    all four networks alive at once between forward and backward: rows x the
+    widths of layers 0..n-2."""
     from deflicker_torch.atlas.engine import build_specs
     from deflicker_torch.config import AtlasConfig
 
     specs = build_specs(AtlasConfig(), dual=True)
     out = {}
-    for name, variants in (("mapping1", 9), ("mapping2", 9), ("atlas", 6),
-                           ("alpha", 5)):
+    for name, variants, _, _ in DUAL_CALLS:
         spec = getattr(specs, name)
         out[name] = 2 * variants * batch * sum(
             fan_out for _, fan_out in spec.layer_dims()[:-1])
@@ -1013,21 +1033,24 @@ def main() -> int:
     for kind in ("fwd", "bwd", "fwd_stash", "bwd_stash"):
         # one fit step's calls summed: mapping1 + atlas of the single fit for
         # the remat pair (launches of the Farneback run), the four networks
-        # of the dual fit for the stash pair (launches of the dual run)
+        # of the dual fit for the stash pair (launches of the dual run), at
+        # the shapes of a step with global rigidity; `per_shape` and the
+        # error cover the later, smaller mapping calls too
         stashed = kind.endswith("_stash")
-        r = (stash_rows if stashed else rows)[kind]
+        every = (stash_rows if stashed else rows)[kind]
+        r = [x for x in every if x.get("with_global", True)]
         kernels.append({
             "name": f"imlp_chain_{kind}", "route": "cuda", "source": src,
             "replaces": replaces[kind],
             "launches": (dual_launches if stashed else launches)[kind],
-            "max_abs_err": max(x["max_abs_err"] for x in r),
+            "max_abs_err": max(x["max_abs_err"] for x in every),
             "ms": sum(x["ms"] for x in r),
             "plain_ms": sum(x["plain_ms"] for x in r),
             "bound_ms": sum(x["bound_ms"] for x in r),
             "bound_by": "operations" if all(x["bound_by"] == "operations"
                                             for x in r) else "bytes",
             "library_ms": sum(x["library_ms"] for x in r),
-            "per_shape": r,
+            "per_shape": every,
         })
     # the lookup of one GRU iteration at the engine's shape (the first case);
     # its launches are those of the RAFT pipeline run

@@ -118,7 +118,7 @@ def init_models(specs: AtlasSpecs, generator: torch.Generator,
     return params
 
 
-def _squash_alpha(raw: torch.Tensor) -> torch.Tensor:
+def squash_alpha(raw: torch.Tensor) -> torch.Tensor:
     """tanh output -> (0.001, 0.991): 0.5*(a+1)*0.99 + 0.001, the reference's
     BCE-safe squash (src/stage1_neural_atlas_seg.py:224-228)."""
     return 0.5 * (raw + 1.0) * 0.99 + 0.001
@@ -195,7 +195,7 @@ def make_loss_fn(specs: AtlasSpecs, cfg: AtlasConfig, data: VideoData,
         atlas_in = [uv1[0] * 0.5 + 0.5, uv1[1] * 0.5 + 0.5,
                     uv1[2] * 0.5 + 0.5]
         if dual:
-            coords2 = (coords1 if gd_bg == gd_fg else
+            coords2 = (coords1 if gd_bg == gd_fg or not include_global else
                        mapping_coords(j, i, f, ffwd, fbwd, gd_bg))
             uv2 = run_mapping(params["mapping2"], specs.mapping2, coords2)
             atlas_in += [uv2[0] * 0.5 - 0.5, uv2[1] * 0.5 - 0.5,
@@ -212,7 +212,7 @@ def make_loss_fn(specs: AtlasSpecs, cfg: AtlasConfig, data: VideoData,
             # alpha at base / x+1 / y+1 / fwd match / bwd match in one
             # forward: variants 0, 1, 2, 5, 6 of the mapping's coordinates
             acoords = torch.cat([coords1[0:3], coords1[5:7]])
-            a_all = _squash_alpha(apply_mlp(
+            a_all = squash_alpha(apply_mlp(
                 params["alpha"], acoords.reshape(5 * B, 3),
                 specs.alpha).reshape(5, B, 1))
             a, a_x, a_y, a_fwd, a_bwd = a_all.unbind(0)

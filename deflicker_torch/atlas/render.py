@@ -26,10 +26,10 @@ from ..models.imlp import imlp_apply
 from ..ops.coords import normalize_xyt
 from ..utils.checkpoint import save_checkpoint
 from .data import VideoData
-from .engine import AtlasSpecs, Params, _squash_alpha
+from .engine import AtlasSpecs, Params, squash_alpha
 
 
-def _param_device(params: Params) -> torch.device:
+def param_device(params: Params) -> torch.device:
     return params["mapping1"][0]["w"].device
 
 
@@ -54,7 +54,7 @@ def _render_xyt(params: Params, specs: AtlasSpecs, xyt: torch.Tensor
         uv2 = imlp_apply(params["mapping2"], xyt, specs.mapping2)
         rgb2 = (imlp_apply(params["atlas"], uv2 * 0.5 - 0.5, specs.atlas)
                 + 1.0) * 0.5
-        a = _squash_alpha(imlp_apply(params["alpha"], xyt, specs.alpha))
+        a = squash_alpha(imlp_apply(params["alpha"], xyt, specs.alpha))
         rgb = rgb * a + rgb2 * (1.0 - a)
         out["alpha"] = a
         out["uv2"] = uv2
@@ -68,7 +68,7 @@ def render_frame(params: Params, specs: AtlasSpecs, f: int, H: int, W: int,
     """One frame (all H*W pixels) from the fitted models, on the params'
     device: {'rgb': (H, W, 3), 'uv1': (H, W, 2)[, 'alpha': (H, W, 1),
     'uv2': (H, W, 2)]}."""
-    device = _param_device(params)
+    device = param_device(params)
     j, i = _pixel_grid(H, W, device)
     xyt = normalize_xyt(j, i, torch.full((H * W,), f, device=device),
                         max(H, W), T)
@@ -81,7 +81,7 @@ def render_frames(params: Params, specs: AtlasSpecs, T: int, H: int, W: int,
                   rows_per_call: int = 1 << 19) -> np.ndarray:
     """All frames -> (T, H, W, 3) float32 on the host, rendered on the
     params' device a few whole frames (<= rows_per_call pixels) at a time."""
-    device = _param_device(params)
+    device = param_device(params)
     jj, ii = _pixel_grid(H, W, device)
     n_fr = max(1, rows_per_call // (H * W))
     out = np.zeros((T, H, W, 3), np.float32)
@@ -103,7 +103,7 @@ def render_diagnostics(params: Params, specs: AtlasSpecs, data: VideoData,
     (loss_utils.py:283-295,360-382; evaluate.py:672-712)."""
     from ..losses import rigidity_loss, safe_norm
 
-    device = _param_device(params)
+    device = param_device(params)
     T, (H, W) = data.num_frames, data.res
     L = data.larger_dim
     d = cfg.derivative_amount

@@ -31,8 +31,9 @@ from ..models.imlp import imlp_apply
 from ..ops.coords import normalize_xyt
 from ..ops.sampling import bilinear_sample
 from .data import VideoData
+from ..utils.device import resolve_device
 from .engine import AtlasSpecs, Params
-from .render import _param_device, render_frame
+from .render import param_device, render_frame
 
 
 @torch.no_grad()
@@ -49,7 +50,7 @@ def get_mapping_area(params: Params, specs: AtlasSpecs, mask,
     The MLPs see `chunk` points at a time, so peak device memory is
     O(chunk), never O(T*H*W); the running min/max stay on the device and
     come back once."""
-    device = _param_device(params)
+    device = param_device(params)
     mask = torch.as_tensor(mask).to(device)
     T, H, W = mask.shape
     total = T * H * W
@@ -129,12 +130,17 @@ def get_high_res_texture(resolution: int, minx: float, maxx: float,
 
 
 def render_from_texture(texture: np.ndarray, minx: float, maxx: float,
-                        miny: float, maxy: float, uv, device="cpu"
+                        miny: float, maxy: float, uv, device=None
                         ) -> np.ndarray:
     """Sample the discretized texture at uv points (already shifted into the
     texture's quadrant): uv -> texture pixel coords -> bilinear
     (evaluate.py:63-83).  uv: (..., 2) array or tensor; returns (..., 3) on
-    the host.  The sampling runs on `device`."""
+    the host.  The sampling runs on `device`; left out, that is where a
+    tensor `uv` lies, and for a host array the card (`resolve_device`, which
+    raises without CUDA)."""
+    if device is None:
+        device = (uv.device if isinstance(uv, torch.Tensor)
+                  else resolve_device())
     resolution = texture.shape[0]
     pixel_size = resolution / (maxx - minx)
     uv = torch.as_tensor(uv).float().to(device)
@@ -157,7 +163,7 @@ def export_atlas_artifacts(params: Params, specs: AtlasSpecs,
         raise ValueError("texture export needs the dual-atlas models")
     results_folder = Path(results_folder)
     results_folder.mkdir(parents=True, exist_ok=True)
-    device = _param_device(params)
+    device = param_device(params)
     T, (H, W) = data.num_frames, data.res
     L = data.larger_dim
 

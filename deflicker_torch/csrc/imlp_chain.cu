@@ -477,24 +477,20 @@ __device__ __forceinline__ void chain_forward(const ChainDesc& d, const SmemLayo
   __syncthreads();
 }
 
+// The forward over one tile.  STASH: the same chain, which also fills the
+// caller's `stash`; otherwise `stash` is unused.
+template <bool STASH>
 __global__ void __launch_bounds__(NTHREADS, FWD_MIN_BLOCKS)
-chain_fwd_kernel(ChainDesc d, const float* __restrict__ x, float* __restrict__ out, int B) {
+chain_fwd_kernel(ChainDesc d, const float* __restrict__ x, float* __restrict__ out, int B,
+                 bf16* stash) {
   extern __shared__ __align__(128) unsigned char smem[];
   const SmemLayout L = smem_layout(d);
-  const StashView none{};  // unused without a stash
-  chain_forward<false, true>(d, L, x, B, blockIdx.x * BM, out, smem, nullptr, none);
-}
-
-// the stash forward: the same chain, which also fills the caller's `stash`
-__global__ void __launch_bounds__(NTHREADS, FWD_MIN_BLOCKS)
-chain_fwd_stash_kernel(ChainDesc d, const float* __restrict__ x, float* __restrict__ out, int B,
-                       bf16* stash) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const SmemLayout L = smem_layout(d);
-  StashView sv;
-  sv.base = stash;
-  stash_offsets(d, B, sv.off);
-  chain_forward<true, true>(d, L, x, B, blockIdx.x * BM, out, smem, nullptr, sv);
+  StashView sv{};
+  if (STASH) {
+    sv.base = stash;
+    stash_offsets(d, B, sv.off);
+  }
+  chain_forward<STASH, true>(d, L, x, B, blockIdx.x * BM, out, smem, nullptr, sv);
 }
 
 // Reverse pass over one tile.  STASHED: `stash` is what a stash forward
@@ -767,16 +763,11 @@ int launch_fwd(const ChainDesc* d, const float* x, float* out, bf16* stash, int 
   const SmemLayout L = smem_layout(*d);
   const int ntiles = (B + BM - 1) / BM;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err =
-      STASH ? cudaFuncSetAttribute(chain_fwd_stash_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes)
-            : cudaFuncSetAttribute(chain_fwd_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
+  cudaError_t err = cudaFuncSetAttribute(chain_fwd_kernel<STASH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)L.bytes);
   if (err != cudaSuccess) return (int)err;
-  if (STASH)
-    chain_fwd_stash_kernel<<<ntiles, NTHREADS, L.bytes, st>>>(*d, x, out, B, stash);
-  else
-    chain_fwd_kernel<<<ntiles, NTHREADS, L.bytes, st>>>(*d, x, out, B);
+  chain_fwd_kernel<STASH><<<ntiles, NTHREADS, L.bytes, st>>>(*d, x, out, B, stash);
   return (int)cudaGetLastError();
 }
 

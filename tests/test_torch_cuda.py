@@ -5,6 +5,8 @@ so it also runs on a machine without it:
 
 Every test skips without a CUDA device (a CUDA kernel has no CPU mode)."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -112,6 +114,9 @@ def test_stash_kernels_match_plain_and_remat(name, cuda_device):
     y, stash = K.imlp_chain_fwd_stash_cuda(xe, wb, bs, sk)
     torch.cuda.synchronize()
     assert K.launches["fwd_stash"] == 1 and K.launches["fwd"] == 0
+    # the wrapper and the kernel lay the stash out alike
+    assert stash.numel() == K._library().imlp_chain_stash_elems(
+        ctypes.byref(K._desc(xe, wb, bs, sk)), B)
     assert torch.equal(y, K.imlp_chain_fwd_cuda(xe, wb, bs, sk))
     y_p, stash_p = K.imlp_chain_fwd_stash_plain(xe, ws, bs, sk)
     assert _rel(y, y_p) < 1e-2

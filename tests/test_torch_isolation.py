@@ -58,6 +58,7 @@ def test_importing_the_port_loads_no_jax():
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     """Called without a device on a machine with no CUDA, entry points raise
     instead of running on the CPU."""
+    from deflicker_torch.atlas import render_from_texture
     from deflicker_torch.cli import convert_weights
     from deflicker_torch.cli import main as cli_main
     from deflicker_torch.cli import preprocess_flow
@@ -83,6 +84,9 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     frames, flows = np.zeros((1, 4, 4, 3)), np.zeros((1, 4, 4, 2))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         warp_error_video(frames, frames, flows, flows)
+    with pytest.raises(RuntimeError, match="no CUDA device"):   # a host uv
+        render_from_texture(np.zeros((8, 8, 3), np.float32), 0.0, 1.0, 0.0,
+                            1.0, np.full((5, 2), 0.5, np.float32))
     ckpt = tmp_path / "raft.pth"
     ckpt.write_bytes(b"")                 # found, and never read: no device
     with pytest.raises(RuntimeError, match="no CUDA device"):
