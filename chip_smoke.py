@@ -43,16 +43,37 @@ Phases (any failure exits non-zero before the result line):
      run reaches execute; loss terms, metrics, textures and alpha maps are
      checked, and alpha must have begun to follow the mask;
   8. profile of the dual fit step, with the stash pair and with the remat
-     pair, same seeds.
-The second-to-last line is the kernel table as JSON, the last line
-{"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
+     pair, same seeds;
+  9. the two other correlation bodies at the flow engine's shape (8 x 54 x
+     96, D = 256, four levels) and flows of +-0.5, +-3 and +-40 px: the
+     shared body (a block stages its 8 pixels' union window in shared
+     memory) and the resident body (levels 2-3 held whole in shared memory)
+     against the plain twin and bit-equal to the band body, timed beside
+     it, with the share of staged windows and the resident levels;
+ 10. the chain kernels with a video axis, V = 3 at the single fit's shapes,
+     both pairs: against the twins, bit-equal to V one-video launches, one
+     V = 3 launch timed against 3 one-video launches;
+ 11. the chunked long-video path: `run_pipeline` on a 170-frame clip with
+     `maximum_number_of_frames` 80 (3 chunks of 57, the last anchored back
+     one frame), RAFT flow with DEFLICKER_CORR_RESIDENT=1, one V = 3 fit of
+     the three chunks at the default widths and batch, every frame rendered,
+     stage 2 over all 170 frames; then 40 profiled steps of that group fit;
+ 12. the batch CLI's group mode (`cli.batch --parallel_fit`) on two 80-frame
+     clips: RAFT flow with DEFLICKER_CORR_SHARED=1, one V = 2 fit with
+     DEFLICKER_IMLP_STASH=1, stage 2 through `FilterEngine.run_multi`.
+Each pipeline phase zeroes the launch counters just before it and reads
+them just after.  The second-to-last line is the kernel table as JSON, the
+last line {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
+device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -84,10 +105,16 @@ TOL_CORR_ABS = 1e-3         # max abs, as a share of max |plain|
 ITERS = 500                 # fit steps (the default config runs 10,001)
 ITERS_RAFT_RUN = 100        # fit steps of the second pipeline run (RAFT flow)
 ITERS_DUAL = 300            # fit steps of the dual-atlas run
-PRETRAIN_DUAL = 50          # pretrain sweeps per mapping there (default 100)
+PRETRAIN_DUAL = 50          # pretrain sweeps per mapping of the dual run (default 100)
 CLIP = (80, 432, 768)       # frames, height, width
 PAIR_BATCH = 4              # preprocess_optical_flow's default
 RAFT_ITERS = 20             # RAFTFlow's default
+LONG_FRAMES = 170           # the chunked phase's clip
+LONG_CAP = 80               # its maximum_number_of_frames (default 200)
+ITERS_MULTI = 100           # fit steps of the chunked and batch phases
+PRETRAIN_MULTI = 25         # pretrain sweeps there (default 100)
+CORR_SPREADS = (0.5, 3.0, 40.0)
+VIDEOS = 3                  # video axis of the batched chain phase
 
 
 def nvidia_smi_line() -> str:
@@ -122,6 +149,21 @@ def rel_err(a, b) -> float:
 
 def abs_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+@contextlib.contextmanager
+def env(**values):
+    """Set environment switches for a block, then restore them."""
+    before = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def kernel_shapes(device):
@@ -537,11 +579,11 @@ def phase_corr_kernel(device) -> list:
     return rows
 
 
-def make_clip(frames_dir: Path, seed: int = 0) -> None:
+def make_clip(frames_dir: Path, seed: int = 0, T: int = CLIP[0]) -> None:
     """A moving texture with a per-frame global gain (flicker)."""
     import cv2
 
-    T, H, W = CLIP
+    _, H, W = CLIP
     rng = np.random.default_rng(seed)
     base = cv2.resize(rng.uniform(30, 220, (H // 8, (W + 4 * T) // 8, 3))
                       .astype(np.float32), (W + 4 * T, H),
@@ -605,13 +647,15 @@ def read_counters() -> dict:
 
 def run_pipeline_checked(device, tag: str, frames: Path, results: Path,
                          ckpt_raft: Path, iters: int, psnr_floor,
-                         class_name=None, overrides=None):
+                         class_name=None, overrides=None, n_frames=CLIP[0],
+                         pair=None):
     """`run_pipeline` at the default AtlasConfig widths and batch with the
     shipped stage-2 weights and `iters` fit steps; every launch counter is
     zeroed just before and read just after; artifacts and metrics checked.
     `class_name` runs the dual-atlas path (masks through the GrabCut
     provider step, which reuses the `_seg` files on disk); `overrides` are
-    further AtlasConfig cuts."""
+    further AtlasConfig cuts; `pair` names the chain counters that must read
+    networks x steps (by default the remat or the stash pair)."""
     import torch
 
     from deflicker_torch.cli.pipeline import run_pipeline
@@ -631,7 +675,7 @@ def run_pipeline_checked(device, tag: str, frames: Path, results: Path,
     cuts.update(overrides or {})
     default = AtlasConfig()
     atlas_cfg = dataclasses.replace(default, **cuts)
-    print(f"[{tag}] {CLIP[0]} frames {CLIP[1]}x{CLIP[2]} (fit at "
+    print(f"[{tag}] {n_frames} frames {CLIP[1]}x{CLIP[2]} (fit at "
           f"/{1 if class_name else 4}), full default widths, batch "
           f"{atlas_cfg.samples_batch}; cut: " + ", ".join(
               f"{k} {getattr(default, k)} -> {v}" for k, v in cuts.items()),
@@ -643,7 +687,7 @@ def run_pipeline_checked(device, tag: str, frames: Path, results: Path,
     launches = read_counters()
     peak = torch.cuda.max_memory_allocated(device)
 
-    pair = ("fwd_stash", "bwd_stash") if class_name else ("fwd", "bwd")
+    pair = pair or (("fwd_stash", "bwd_stash") if class_name else ("fwd", "bwd"))
     calls = (4 if class_name else 2) * iters       # networks x fit steps
     if any(launches[k] != calls for k in pair):
         raise AssertionError(f"chain kernels launched {launches}, "
@@ -654,7 +698,7 @@ def run_pipeline_checked(device, tag: str, frames: Path, results: Path,
     if psnr_floor is not None and out["psnr"] < psnr_floor:
         raise AssertionError(f"stage-1 PSNR {out['psnr']} dB: fit failed")
     res = results / frames.name
-    T = CLIP[0]
+    T = n_frames
     for sub in ("stage_1/output", "neural_filter/output", "final/output"):
         n = len(list_frames(res / sub))
         if n != T:
@@ -669,7 +713,8 @@ def run_pipeline_checked(device, tag: str, frames: Path, results: Path,
     summary = {k: out[k] for k in ("psnr", "final_psnr", "final_ewarp",
                                    "input_ewarp", "iters_per_sec", "t_flow",
                                    "t_pretrain", "t_fit", "t_render",
-                                   "t_stage2", "t_total")}
+                                   "t_stage2", "t_total", "chunks")
+               if k in out}
     summary.update(launches=launches, peak_mem_gib=peak / 2 ** 30,
                    iterations=iters)
     print(f"[{tag}] " + json.dumps(summary), flush=True)
@@ -761,8 +806,6 @@ def reckoned_stash_bytes(batch: int) -> dict:
 def phase_dual_pipeline(device):
     """The dual-atlas pipeline through `run_pipeline` with `class_name` set
     and the stash pair selected by DEFLICKER_IMLP_STASH=1."""
-    import os
-
     frames = WORK / "data_dual" / "clipdual"
     make_dual_clip(frames)
     seg = frames.parent / f"{frames.name}_seg"
@@ -779,18 +822,11 @@ def phase_dual_pipeline(device):
     print("[dual-pipeline] DEFLICKER_IMLP_STASH=1; stash per step reckoned "
           f"{ {k: round(v / 1e6, 1) for k, v in stash.items()} } MB, "
           f"{sum(stash.values()) / 1e6:.1f} MB in all", flush=True)
-    before = os.environ.get("DEFLICKER_IMLP_STASH")
-    os.environ["DEFLICKER_IMLP_STASH"] = "1"
-    try:
+    with env(DEFLICKER_IMLP_STASH="1"):
         out, launches, atlas_cfg = run_pipeline_checked(
             device, "dual-pipeline", frames, WORK / "results_dual",
             WORK / "no-raft.pth", ITERS_DUAL, psnr_floor=10.0,
             class_name="anything", overrides=overrides)
-    finally:
-        if before is None:
-            del os.environ["DEFLICKER_IMLP_STASH"]
-        else:
-            os.environ["DEFLICKER_IMLP_STASH"] = before
     if launches["fwd"] or launches["bwd"] or launches["lookup"]:
         raise AssertionError(f"the dual stash run launched other kernels: {launches}")
     if out["res"] != (CLIP[1], CLIP[2]):
@@ -842,8 +878,6 @@ def phase_dual_profile(device, frames: Path, atlas_cfg, steps: int = 20) -> None
     """Where a dual fit step's time goes, with the stash pair and with the
     remat pair: the same data, init and sample seeds for both; `steps` steps
     timed plain, then under torch.profiler; peak device memory of each."""
-    import os
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -858,10 +892,8 @@ def phase_dual_profile(device, frames: Path, atlas_cfg, steps: int = 20) -> None
                               evaluate_every=10 ** 9, stop_global_rigidity=10 ** 9,
                               stop_bootstrapping_iteration=10 ** 9)
     specs = build_specs(cfg, dual=True)
-    before = os.environ.get("DEFLICKER_IMLP_STASH")
-    try:
-        for mode in ("stash", "remat", "remat", "stash"):
-            os.environ["DEFLICKER_IMLP_STASH"] = "1" if mode == "stash" else "0"
+    for mode in ("stash", "remat", "remat", "stash"):
+        with env(DEFLICKER_IMLP_STASH="1" if mode == "stash" else "0"):
             params = init_models(specs, torch.Generator().manual_seed(0), device)
             gen = torch.Generator(device=device).manual_seed(0)
             fit_atlas(params, specs, data, dataclasses.replace(cfg, iters_num=5), gen)
@@ -883,11 +915,338 @@ def phase_dual_profile(device, frames: Path, atlas_cfg, steps: int = 20) -> None
                   f"peak memory {peak / 2 ** 30:.3f} GiB", flush=True)
             report_profile(f"dual-profile-{mode}", "step", steps, wall_plain,
                            wall, prof)
-    finally:
-        if before is None:
-            del os.environ["DEFLICKER_IMLP_STASH"]
-        else:
-            os.environ["DEFLICKER_IMLP_STASH"] = before
+
+
+def phase_corr_bodies(device) -> dict:
+    """The shared and resident bodies at the flow engine's shape and three
+    flow spreads: against the plain twin (the band body's tolerances), bit
+    for bit against the band body, then timed beside it and the twin; the
+    bound is the band body's (the same function on the same inputs)."""
+    import torch
+
+    from deflicker_torch.ops.cuda import corr_kernel as C
+
+    _, B, H, W, D, _ = CORR_CASES[0]
+    rows = {"shared": [], "resident": []}
+    for spread in CORR_SPREADS:
+        f1, _, stored, coords = corr_case(B, H, W, D, spread, device)
+        band = C.corr_lookup_cuda(f1, stored, coords)
+        want = C.corr_lookup_plain(f1, stored, coords)
+        scale = float(want.abs().max())
+        flops, nbytes, dots = corr_counts(f1, stored, coords)
+        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+        band_ms = cuda_ms(lambda: C.corr_lookup_cuda(f1, stored, coords))
+        plain_ms = cuda_ms(lambda: C.corr_lookup_plain(f1, stored, coords),
+                           iters=5, warmup=1)
+        for body in ("shared", "resident"):
+            staged = torch.zeros(len(stored), dtype=torch.int32, device=device)
+            got = C.corr_lookup_cuda(f1, stored, coords, body=body,
+                                     staged=staged if body == "shared" else None)
+            torch.cuda.synchronize()
+            err, aerr = rel_err(got, want), abs_err(got, want)
+            if not (err <= TOL_CORR_REL) or not (aerr <= TOL_CORR_ABS * scale):
+                raise AssertionError(f"corr {body} +-{spread}: rel err {err}, "
+                                     f"max abs {aerr} (x {scale})")
+            if not torch.equal(got, band):
+                raise AssertionError(f"corr {body} +-{spread}: output differs "
+                                     "from the band body's")
+            row = dict(body=body, spread=spread, B=B, pixels=H * W, D=D,
+                       max_abs_err=aerr, rel_err=err, bit_equal_to_band=True,
+                       ms=cuda_ms(lambda: C.corr_lookup_cuda(
+                           f1, stored, coords, body=body)),
+                       band_ms=band_ms, plain_ms=plain_ms, library_ms=None,
+                       bound_ms=1e3 * max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       dots=dots)
+            if body == "shared":
+                blocks = -(-B * H * W // 8)
+                row["staged_share_by_level"] = [int(n) / blocks
+                                                for n in staged.tolist()]
+                row["staged_share"] = sum(staged.tolist()) / (blocks * len(stored))
+            else:
+                row["resident_levels"] = list(C.resident_levels(
+                    [tuple(lvl.shape[1:3]) for lvl in stored], D,
+                    C.resident_capacity()))
+                row["resident_capacity_bytes"] = C.resident_capacity()
+            rows[body].append(row)
+            print(f"[kernel] corr_{body} +-{spread}: {row}", flush=True)
+    return rows
+
+
+def library_chain_v(case, kind: str):
+    """One bf16 batched `torch.matmul` chain over the video axis (the port
+    never calls it): forward, or forward + autograd backward."""
+    import torch
+
+    xb = case["x"].to(torch.bfloat16)
+    wb = [w.to(torch.bfloat16) for w in case["ws"]]
+    bb = [b.to(torch.bfloat16)[:, None] for b in case["bs"]]
+
+    def fwd(ws_):
+        h = xb
+        for i, (w, b) in enumerate(zip(ws_, bb)):
+            if i > 0:
+                h = torch.relu(h)
+            if i in case["skips"]:
+                h = torch.cat([h, xb], dim=-1)
+            h = torch.matmul(h, w) + b
+        return h
+
+    if kind == "fwd":
+        return lambda: fwd(wb)
+    wr = [w.clone().requires_grad_() for w in wb]
+    gb = case["g"].to(torch.bfloat16)
+    return lambda: torch.autograd.grad(fwd(wr), wr, gb)
+
+
+def phase_video_chain(device) -> dict:
+    """Both chain pairs with a video axis (V = 3) at the single fit's two
+    shapes: against the plain twins, bit-equal to V one-video launches, one
+    V = 3 launch timed against 3 one-video launches and the batched library
+    chain; bound = V x the one-video bound."""
+    import torch
+
+    from deflicker_torch.models.imlp import imlp_init, positional_encoding
+    from deflicker_torch.atlas.engine import build_specs
+    from deflicker_torch.config import AtlasConfig
+    from deflicker_torch.ops.cuda import imlp_kernel as K
+
+    cfg = AtlasConfig()
+    specs = build_specs(cfg)
+    gen = torch.Generator().manual_seed(3)
+    rows = {k: [] for k in ("fwd_v", "bwd_v", "fwd_stash_v", "bwd_stash_v")}
+    for name, spec, rows_n, need_dx in (
+            ("mapping1", specs.mapping1, 9 * cfg.samples_batch, False),
+            ("atlas", specs.atlas, 3 * cfg.samples_batch, True)):
+        params = imlp_init(spec, gen, device, n_videos=VIDEOS)
+        x = torch.rand((VIDEOS, rows_n, spec.input_dim), generator=gen) * 2 - 1
+        x = x.to(device)
+        if spec.use_positional:
+            x = positional_encoding(x, spec.positional_dim)
+        x = x.contiguous()
+        g = torch.randn((VIDEOS, rows_n, spec.output_dim), generator=gen).to(device)
+        ws = [p["w"].detach() for p in params]
+        bs = [p["b"].detach().contiguous() for p in params]
+        wb = [w.to(torch.bfloat16).contiguous() for w in ws]
+        sk = tuple(spec.skip_layers)
+        case = dict(x=x, ws=ws, bs=bs, g=g, skips=sk, need_dx=need_dx)
+        one = [dict(x=x[v], ws=[w[v] for w in ws], bs=[b[v] for b in bs],
+                    wb=[w[v] for w in wb], g=g[v]) for v in range(VIDEOS)]
+
+        y = K.imlp_chain_fwd_cuda(x, wb, bs, sk)
+        ys, stash = K.imlp_chain_fwd_stash_cuda(x, wb, bs, sk)
+        grads = K.imlp_chain_bwd_cuda(x, wb, bs, sk, g, need_dx)
+        sgrads = K.imlp_chain_bwd_stash_cuda(x, wb, bs, sk, stash, g, need_dx)
+        torch.cuda.synchronize()
+        flat = lambda r: ([r[0]] if need_dx else []) + r[1] + r[2]
+        same = torch.equal(y, ys) and all(
+            torch.equal(a, b) for a, b in zip(flat(sgrads), flat(grads)))
+        for v, o in enumerate(one):
+            same = same and torch.equal(y[v], K.imlp_chain_fwd_cuda(
+                o["x"], o["wb"], o["bs"], sk))
+            r1 = K.imlp_chain_bwd_cuda(o["x"], o["wb"], o["bs"], sk, o["g"], need_dx)
+            same = same and all(torch.equal(a[v], b)
+                                for a, b in zip(flat(grads), flat(r1)))
+        if not same:
+            raise AssertionError(f"video-axis chain {name}: not bit-equal to the "
+                                 "one-video launches")
+        y_p = K.imlp_chain_fwd_plain(x, ws, bs, sk)
+        g_p = K.imlp_chain_bwd_plain(x, ws, bs, sk, g, need_dx)
+        stash_p = K.imlp_chain_fwd_stash_plain(x, ws, bs, sk)[1]
+        errs_f = [rel_err(y, y_p)]
+        errs_b = [rel_err(a, b) for a, b in zip(flat(grads), flat(g_p))]
+        if not (max(errs_f) <= TOL_FWD) or not (max(errs_b) <= TOL_BWD):
+            raise AssertionError(f"video-axis chain {name}: rel err "
+                                 f"{max(errs_f)} / {max(errs_b)}")
+        abs_f = abs_err(y, y_p)
+        abs_b = max(abs_err(a, b) for a, b in zip(flat(grads), flat(g_p)))
+        one_case = dict(x=x[0], ws=[w[0] for w in ws], bs=[b[0] for b in bs],
+                        g=g[0], skips=sk, need_dx=need_dx)
+        for key, kind, err, aerr, run, each, plain, counts in (
+                ("fwd_v", "fwd", max(errs_f), abs_f,
+                 lambda: K.imlp_chain_fwd_cuda(x, wb, bs, sk),
+                 lambda: [K.imlp_chain_fwd_cuda(o["x"], o["wb"], o["bs"], sk)
+                          for o in one],
+                 lambda: K.imlp_chain_fwd_plain(x, ws, bs, sk), chain_counts),
+                ("bwd_v", "bwd", max(errs_b), abs_b,
+                 lambda: K.imlp_chain_bwd_cuda(x, wb, bs, sk, g, need_dx),
+                 lambda: [K.imlp_chain_bwd_cuda(o["x"], o["wb"], o["bs"], sk,
+                                                o["g"], need_dx) for o in one],
+                 lambda: K.imlp_chain_bwd_plain(x, ws, bs, sk, g, need_dx),
+                 chain_counts),
+                ("fwd_stash_v", "fwd", max(errs_f), abs_f,
+                 lambda: K.imlp_chain_fwd_stash_cuda(x, wb, bs, sk),
+                 lambda: [K.imlp_chain_fwd_stash_cuda(o["x"], o["wb"], o["bs"], sk)
+                          for o in one],
+                 lambda: K.imlp_chain_fwd_stash_plain(x, ws, bs, sk), stash_counts),
+                ("bwd_stash_v", "bwd", max(errs_b), abs_b,
+                 lambda: K.imlp_chain_bwd_stash_cuda(x, wb, bs, sk, stash, g,
+                                                     need_dx),
+                 lambda: [K.imlp_chain_bwd_stash_cuda(
+                     o["x"], o["wb"], o["bs"], sk, stash[v], o["g"], need_dx)
+                     for v, o in enumerate(one)],
+                 lambda: K.imlp_chain_bwd_stash_plain(x, ws, bs, sk, stash_p, g,
+                                                      need_dx),
+                 stash_counts)):
+            flops, nbytes = counts(one_case, kind)
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+            rows[key].append(dict(
+                shape=name, videos=VIDEOS, rows=int(rows_n), max_abs_err=aerr,
+                rel_err=err, bit_equal_to_one_video=True, ms=cuda_ms(run),
+                one_video_x3_ms=cuda_ms(each), plain_ms=cuda_ms(plain, iters=5),
+                library_ms=cuda_ms(library_chain_v(case, kind)),
+                bound_ms=VIDEOS * 1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes"))
+            print(f"[kernel] {key} {name}: {rows[key][-1]}", flush=True)
+    return rows
+
+
+def phase_chunked(device):
+    """The chunked long-video path through `run_pipeline`: a 170-frame clip
+    past a cap of 80 (3 chunks of 57, starts 0, 57, 113), RAFT flow from the
+    seeded random `.pth` with the resident correlation body, one V = 3 fit
+    of the chunks (the video-axis chain pair, one launch per network and
+    step), every frame rendered and refined."""
+    from deflicker_torch.cli.pipeline import _chunk_starts
+    from deflicker_torch.io.media import list_frames
+
+    frames = WORK / "data_long" / "cliplong"
+    make_clip(frames, seed=2, T=LONG_FRAMES)
+    size, starts = _chunk_starts(LONG_FRAMES, LONG_CAP)
+    if (size, starts) != (57, [0, 57, 113]):
+        raise AssertionError(f"chunking {size} {starts}")
+    solves = -(-(LONG_FRAMES - 1) // PAIR_BATCH)
+    overrides = dict(maximum_number_of_frames=LONG_CAP,
+                     pretrain_iter_number=PRETRAIN_MULTI)
+    print(f"[chunked] {LONG_FRAMES} frames, cap {LONG_CAP} -> 3 chunks of {size} "
+          f"at {starts}; DEFLICKER_CORR_RESIDENT=1, {solves} flow solves",
+          flush=True)
+    with env(DEFLICKER_CORR_RESIDENT="1"):
+        out, launches, atlas_cfg = run_pipeline_checked(
+            device, "chunked", frames, WORK / "results_long",
+            WORK / "raft-random.pth", ITERS_MULTI, psnr_floor=None,
+            overrides=overrides, n_frames=LONG_FRAMES, pair=("fwd_v", "bwd_v"))
+    want = RAFT_ITERS * solves
+    if launches["lookup_resident"] != want or launches["lookup"] \
+            or launches["lookup_shared"]:
+        raise AssertionError(f"corr launches {launches}, want {want} resident")
+    if launches["fwd"] or launches["bwd"] or out["chunks"] != 3:
+        raise AssertionError(f"chunked run: {launches}, {out.get('chunks')} chunks")
+    s1 = WORK / "results_long" / frames.name / "stage_1"
+    names = [p.name for p in list_frames(s1 / "output")]
+    if names != [f"{t:05d}.png" for t in range(LONG_FRAMES)]:
+        raise AssertionError("stage-1 frames are not numbered 0..169")
+    print("[chunked] " + json.dumps({
+        "chunks": out["chunks"], "video_iters_per_sec": out["iters_per_sec"],
+        "solves": solves, "lookup_resident": launches["lookup_resident"],
+        "fwd_v": launches["fwd_v"], "bwd_v": launches["bwd_v"]}), flush=True)
+    return launches, frames, atlas_cfg
+
+
+def phase_multi_profile(device, frames: Path, atlas_cfg, steps: int = 40) -> None:
+    """Where a V = 3 group step's time goes: the three chunks of the
+    chunked phase, `steps` steps timed plain, then under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deflicker_torch.atlas import build_specs, load_video_data
+    from deflicker_torch.atlas.multifit import (fit_atlas_multi,
+                                                init_models_multi,
+                                                stack_video_data)
+    from deflicker_torch.cli.pipeline import _chunk_starts
+
+    size, starts = _chunk_starts(LONG_FRAMES, LONG_CAP)
+    H, W = CLIP[1] // 4, CLIP[2] // 4
+    data_v = stack_video_data([load_video_data(frames, H, W, size, start_frame=s)
+                               for s in starts], device)
+    cfg = dataclasses.replace(atlas_cfg, iters_num=steps, steps_per_call=steps,
+                              evaluate_every=10 ** 9)
+    specs = build_specs(cfg)
+    params = init_models_multi(specs, torch.Generator().manual_seed(0),
+                               len(starts), device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    fit_atlas_multi(params, specs, data_v, dataclasses.replace(cfg, iters_num=5), gen)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fit_atlas_multi(params, specs, data_v, cfg, gen)
+    torch.cuda.synchronize()
+    wall_plain = time.time() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fit_atlas_multi(params, specs, data_v, cfg, gen)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    report_profile("multi-profile", "step", steps, wall_plain, wall, prof)
+    print(f"[multi-profile] {len(starts)} videos: "
+          f"{len(starts) * steps / wall_plain:.2f} video-steps/s", flush=True)
+
+
+def phase_batch(device):
+    """The batch CLI's group mode (`cli.batch --parallel_fit`, its parser and
+    `run_batch_parallel`) on two 80-frame clips: RAFT flow with the shared
+    correlation body, one V = 2 fit through the video-axis stash pair
+    (DEFLICKER_IMLP_STASH=1), stage 2 through `run_multi`; PSNR and E_warp
+    of each output, every output frame written per video."""
+    import torch
+
+    from deflicker_torch.cli import batch
+    from deflicker_torch.cli.evaluate import compute_video_metrics
+    from deflicker_torch.config import AtlasConfig
+    from deflicker_torch.io.media import list_frames
+
+    root = WORK / "data_batch"
+    names = ("clipa", "clipb")
+    for k, name in enumerate(names):
+        make_clip(root / name, seed=3 + k)
+    # the CLI's own parser; `main` would build this AtlasConfig from
+    # --config / --iters
+    argv = ["--videos", *(str(root / n) for n in names), "--parallel_fit",
+            "--root", str(root), "--results_root", str(WORK / "results_batch"),
+            "--ckpt_raft", str(WORK / "raft-random.pth"),
+            "--ckpt_filter", str(ROOT / "pretrained_weights" / "neural_filter.ckpt"),
+            "--ckpt_local", str(ROOT / "pretrained_weights" /
+                                "local_refinement_net.ckpt")]
+    args = batch.build_parser().parse_args(argv)
+    atlas_cfg = dataclasses.replace(AtlasConfig(), iters_num=ITERS_MULTI,
+                                    evaluate_every=ITERS_MULTI - 1,
+                                    pretrain_iter_number=PRETRAIN_MULTI)
+    solves = len(names) * -(-(CLIP[0] - 1) // PAIR_BATCH)
+    print(f"[batch] cli.batch {' '.join(argv)}; DEFLICKER_CORR_SHARED=1, "
+          f"DEFLICKER_IMLP_STASH=1; cut: iters_num 10001 -> {ITERS_MULTI}, "
+          f"pretrain_iter_number 100 -> {PRETRAIN_MULTI}", flush=True)
+    with env(DEFLICKER_CORR_SHARED="1", DEFLICKER_IMLP_STASH="1"):
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counters()
+        summary = batch.run_batch_parallel(args.videos, args, atlas_cfg,
+                                           device=device)
+        launches = read_counters()
+    peak = torch.cuda.max_memory_allocated(device)
+    calls = 2 * ITERS_MULTI
+    if launches["lookup_shared"] != RAFT_ITERS * solves or launches["lookup"] \
+            or launches["lookup_resident"]:
+        raise AssertionError(f"corr launches {launches}, want "
+                             f"{RAFT_ITERS * solves} shared")
+    if launches["fwd_stash_v"] != calls or launches["bwd_stash_v"] != calls \
+            or launches["fwd_stash"] or launches["fwd_v"]:
+        raise AssertionError(f"chain launches {launches}, want {calls} stash_v")
+    metrics = {}
+    for name in names:
+        res = WORK / "results_batch" / name
+        for sub in ("stage_1/output", "neural_filter/output", "final/output"):
+            if len(list_frames(res / sub)) != CLIP[0]:
+                raise AssertionError(f"{name}/{sub}: not {CLIP[0]} frames")
+        m = compute_video_metrics(root / name, res / "final" / "output",
+                                  device=device)
+        rec = next(r for r in summary["per_video"] if r["video"] == name)
+        metrics[name] = {"psnr": rec["psnr"], "final_psnr": m["psnr_mean"],
+                         "final_ewarp": m.get("ewarp_mean")}
+        if not all(v is not None and math.isfinite(v) for v in metrics[name].values()):
+            raise AssertionError(f"{name}: metrics {metrics[name]}")
+    print("[batch] " + json.dumps({
+        **{k: v for k, v in summary.items() if k != "per_video"},
+        "metrics": metrics, "launches": launches, "peak_mem_gib": peak / 2 ** 30,
+        "solves": solves}), flush=True)
+    return launches
 
 
 def device_events(prof):
@@ -1001,6 +1360,7 @@ def main() -> int:
     print(smi, flush=True)
     device = torch.device("cuda:0")
     t0 = time.time()
+    t_start = time.time()
     logs = build.build(["imlp_chain", "corr_lookup"], verbose=True)
     print(f"[build] nvcc {time.time() - t0:.1f} s", flush=True)
     for name, log in logs.items():
@@ -1011,6 +1371,8 @@ def main() -> int:
     rows = phase_chain_kernels(device)
     stash_rows = phase_stash_kernels(device)
     corr_rows = phase_corr_kernel(device)
+    body_rows = phase_corr_bodies(device)
+    video_rows = phase_video_chain(device)
     t1 = time.time()
     launches, frames, atlas_cfg = phase_pipeline(device)
     print(f"[pipeline] wall {time.time() - t1:.1f} s", flush=True)
@@ -1023,6 +1385,13 @@ def main() -> int:
     dual_launches, dual_frames, dual_cfg = phase_dual_pipeline(device)
     print(f"[dual-pipeline] wall {time.time() - t1:.1f} s", flush=True)
     phase_dual_profile(device, dual_frames, dual_cfg)
+    t1 = time.time()
+    long_launches, long_frames, long_cfg = phase_chunked(device)
+    print(f"[chunked] wall {time.time() - t1:.1f} s", flush=True)
+    phase_multi_profile(device, long_frames, long_cfg)
+    t1 = time.time()
+    batch_launches = phase_batch(device)
+    print(f"[batch] wall {time.time() - t1:.1f} s", flush=True)
 
     src = "deflicker_torch/csrc/imlp_chain.cu"
     replaces = {"fwd": "deflicker_tpu/ops/pallas/imlp_kernel.py:421",
@@ -1065,6 +1434,42 @@ def main() -> int:
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
         "library_ms": None, "per_shape": corr_rows,
     })
+    # the other two bodies, at the same shape and flow (+-3 px); launches of
+    # the batch phase (shared) and of the chunked phase (resident)
+    for body, row, launched in (("shared", 6, batch_launches["lookup_shared"]),
+                                ("resident", 7, long_launches["lookup_resident"])):
+        every = body_rows[body]
+        r = next(x for x in every if x["spread"] == 3.0)
+        kernels.append({
+            "name": f"corr_lookup_{body}", "route": "cuda",
+            "source": "deflicker_torch/csrc/corr_lookup.cu",
+            "replaces": "deflicker_tpu/ops/pallas/corr_kernel.py:"
+                        + ("459" if body == "shared" else "571"),
+            "launches": launched,
+            "max_abs_err": max(x["max_abs_err"] for x in every),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None, "per_shape": every,
+        })
+    # the chain pairs with a video axis (V = 3, mapping1 + atlas summed);
+    # launches of the chunked phase (remat) and of the batch phase (stash)
+    for kind in ("fwd", "bwd", "fwd_stash", "bwd_stash"):
+        r = video_rows[kind + "_v"]
+        launched = (batch_launches if "stash" in kind else long_launches)[kind + "_v"]
+        kernels.append({
+            "name": f"imlp_chain_{kind}_v", "route": "cuda", "source": src,
+            "replaces": replaces[kind], "form": f"video axis, V = {VIDEOS}",
+            "launches": launched,
+            "max_abs_err": max(x["max_abs_err"] for x in r),
+            "ms": sum(x["ms"] for x in r),
+            "plain_ms": sum(x["plain_ms"] for x in r),
+            "bound_ms": sum(x["bound_ms"] for x in r),
+            "bound_by": "operations" if all(x["bound_by"] == "operations"
+                                            for x in r) else "bytes",
+            "library_ms": sum(x["library_ms"] for x in r),
+            "one_video_x3_ms": sum(x["one_video_x3_ms"] for x in r),
+            "per_shape": r,
+        })
+    print(f"[total] wall {time.time() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

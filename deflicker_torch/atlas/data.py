@@ -89,9 +89,9 @@ def load_video_data(frames_dir: str | Path, resy: int, resx: int,
                     start_frame: int = 0) -> VideoData:
     """Load frames + flow cache into a VideoData of host arrays.
 
-    `start_frame` selects a chunk of a longer video (the JAX package's
-    auto-chunked long-video path, not ported yet): frames `[start_frame, start_frame +
-    maximum_number_of_frames)` load with the chunk edges treated exactly
+    `start_frame` selects a chunk of a longer video (the chunked long-video
+    path, cli/pipeline._run_stage1_chunked): frames `[start_frame,
+    start_frame + maximum_number_of_frames)` load with the chunk edges treated exactly
     like video edges (zero flow/mask on the first/last frame's missing
     side) — the same semantics the reference prescribes for manually split
     long videos (README.md:117)."""

@@ -139,8 +139,14 @@ def make_loss_fn(specs: AtlasSpecs, cfg: AtlasConfig, data: VideoData,
     the shapes.  One iteration of the reference loop (single:
     src/stage1_neural_atlas.py:159-231; dual:
     src/stage1_neural_atlas_seg.py:204-315) with all queries of a network
-    fused into one forward per network."""
-    T, (H, W) = data.num_frames, data.res
+    fused into one forward per network.
+
+    The same function is the V-batched loss of the multi-video fit (the
+    counterpart of `jax.vmap` over the JAX package's loss): params with a
+    leading video axis on every leaf, `packed` (V, T, H, W, 16) and samples
+    (V, B) give `total` and every `aux` term of shape (V,), video v's terms
+    reading only video v's params, pack and samples."""
+    T = data.num_frames
     L = data.larger_dim
     dual = specs.dual
     apply_mlp = select_imlp_apply(cfg.use_pallas_imlp, cfg.fit_precision)
@@ -155,8 +161,9 @@ def make_loss_fn(specs: AtlasSpecs, cfg: AtlasConfig, data: VideoData,
                   Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def mapping_coords(j, i, f, ffwd, fbwd, gd):
-        """The 7 (9 with global rigidity) coordinate variants, stacked to
-        (K, B, 3) in a handful of ops (the step is dispatch-bound)."""
+        """The 7 (9 with global rigidity) coordinate variants of samples
+        (..., B), stacked to (..., K, B, 3) in a handful of ops (the step is
+        dispatch-bound)."""
         if (j.device, gd) not in offsets:
             dj = [0, 1, 0, 0, -d] + ([0, -gd] if include_global else [])
             di = [0, 0, 1, -d, 0] + ([-gd, 0] if include_global else [])
@@ -164,58 +171,61 @@ def make_loss_fn(specs: AtlasSpecs, cfg: AtlasConfig, data: VideoData,
                 torch.tensor(o, dtype=torch.float32, device=j.device)[:, None]
                 for o in (dj, di))
         oj, oi = offsets[j.device, gd]
-        jf, i_f, ff = j.float(), i.float(), f.float()
-        J = torch.cat([jf + oj[:5], (jf + ffwd[:, 0])[None],
-                       (jf + fbwd[:, 0])[None], jf + oj[5:]])
-        I = torch.cat([i_f + oi[:5], (i_f + ffwd[:, 1])[None],
-                       (i_f + fbwd[:, 1])[None], i_f + oi[5:]])
-        F = torch.cat([ff.expand(5, -1), (ff + 1.0)[None], (ff - 1.0)[None],
-                       ff.expand(oj.shape[0] - 5, -1)])
+        jf, i_f, ff = (t.float().unsqueeze(-2) for t in (j, i, f))
+        (fx, fy), (bx, by) = ffwd.unbind(-1), fbwd.unbind(-1)
+        lead = ff.shape[:-2]
+        J = torch.cat([jf + oj[:5], jf + fx.unsqueeze(-2),
+                       jf + bx.unsqueeze(-2), jf + oj[5:]], dim=-2)
+        I = torch.cat([i_f + oi[:5], i_f + fy.unsqueeze(-2),
+                       i_f + by.unsqueeze(-2), i_f + oi[5:]], dim=-2)
+        F = torch.cat([ff.expand(*lead, 5, -1), ff + 1.0, ff - 1.0,
+                       ff.expand(*lead, oj.shape[0] - 5, -1)], dim=-2)
         return normalize_xyt(J, I, F, L, T)
 
-    def run_mapping(layers, spec, coords):
-        K, B = coords.shape[0], coords.shape[1]
-        return apply_mlp(layers, coords.reshape(K * B, 3),
-                         spec).reshape(K, B, 2)
+    def run(layers, spec, coords, out_dim):
+        """Network on (..., K, B, in) coordinates -> the K variants' outputs,
+        each (..., B, out)."""
+        *lead, K, B, n_in = coords.shape
+        return apply_mlp(layers, coords.reshape(*lead, K * B, n_in),
+                         spec).reshape(*lead, K, B, out_dim).unbind(-3)
 
     def loss_fn(params: Params, packed: torch.Tensor, j: torch.Tensor,
                 i: torch.Tensor, f: torch.Tensor):
-        B = j.shape[0]
-        g = packed[f, i, j]
-        rgb_gt, dx_gt, dy_gt = g[:, 0:3], g[:, 3:6], g[:, 6:9]
-        ffwd, fbwd = g[:, 9:11], g[:, 11:13]
-        mfwd, mbwd = g[:, 13], g[:, 14]
+        if j.dim() == 2:           # (V, B): gather from each video's pack
+            video = torch.arange(j.shape[0], device=j.device)[:, None]
+            g = packed[video, f, i, j]
+        else:
+            g = packed[f, i, j]
+        rgb_gt, dx_gt, dy_gt, ffwd, fbwd, masks = g.split([3, 3, 3, 2, 2, 3],
+                                                          dim=-1)
+        mfwd, mbwd, mask = masks.unbind(-1)
 
         coords1 = mapping_coords(j, i, f, ffwd, fbwd, gd_fg)
-        uv1 = run_mapping(params["mapping1"], specs.mapping1, coords1)
+        u1 = run(params["mapping1"], specs.mapping1, coords1, 2)
 
         # atlas queries at base / x+1 / y+1: fg quadrant uv*0.5+0.5, and on
         # the dual path bg quadrant uv*0.5-0.5, in one forward
         # (src/stage1_neural_atlas.py:181, loss_utils.py:157-160)
-        atlas_in = [uv1[0] * 0.5 + 0.5, uv1[1] * 0.5 + 0.5,
-                    uv1[2] * 0.5 + 0.5]
+        atlas_in = [u * 0.5 + 0.5 for u in u1[:3]]
         if dual:
             coords2 = (coords1 if gd_bg == gd_fg or not include_global else
                        mapping_coords(j, i, f, ffwd, fbwd, gd_bg))
-            uv2 = run_mapping(params["mapping2"], specs.mapping2, coords2)
-            atlas_in += [uv2[0] * 0.5 - 0.5, uv2[1] * 0.5 - 0.5,
-                         uv2[2] * 0.5 - 0.5]
-        n_atlas = len(atlas_in)
-        rgb_all = (apply_mlp(params["atlas"], torch.cat(atlas_in, dim=0),
-                             specs.atlas) + 1.0) * 0.5
-        rgb_all = rgb_all.reshape(n_atlas, B, 3)
-        rgb1, rgb1_x, rgb1_y = rgb_all[0], rgb_all[1], rgb_all[2]
+            u2 = run(params["mapping2"], specs.mapping2, coords2, 2)
+            atlas_in += [u * 0.5 - 0.5 for u in u2[:3]]
+        rgb_all = run(params["atlas"], specs.atlas,
+                      torch.stack(atlas_in, dim=-3), 3)
+        rgb1, rgb1_x, rgb1_y = ((r + 1.0) * 0.5 for r in rgb_all[:3])
 
         aux: Dict[str, torch.Tensor] = {}
         if dual:
-            rgb2, rgb2_x, rgb2_y = rgb_all[3], rgb_all[4], rgb_all[5]
+            rgb2, rgb2_x, rgb2_y = ((r + 1.0) * 0.5 for r in rgb_all[3:])
             # alpha at base / x+1 / y+1 / fwd match / bwd match in one
             # forward: variants 0, 1, 2, 5, 6 of the mapping's coordinates
-            acoords = torch.cat([coords1[0:3], coords1[5:7]])
-            a_all = squash_alpha(apply_mlp(
-                params["alpha"], acoords.reshape(5 * B, 3),
-                specs.alpha).reshape(5, B, 1))
-            a, a_x, a_y, a_fwd, a_bwd = a_all.unbind(0)
+            acoords = torch.cat([coords1.narrow(-3, 0, 3),
+                                 coords1.narrow(-3, 5, 2)], dim=-3)
+            a, a_x, a_y, a_fwd, a_bwd = (
+                squash_alpha(r) for r in run(params["alpha"], specs.alpha,
+                                             acoords, 1))
 
             rgb_pred = rgb1 * a + rgb2 * (1.0 - a)
             rgb_pred_x = rgb1_x * a_x + rgb2_x * (1.0 - a_x)
@@ -234,33 +244,32 @@ def make_loss_fn(specs: AtlasSpecs, cfg: AtlasConfig, data: VideoData,
             aux["gradient"] = l_grad
             total = total + cfg.gradient_loss_coeff * l_grad
 
-        l_rig1 = rigidity_loss(uv1[0], uv1[3], uv1[4], d, L,
-                               cfg.uv_mapping_scale)
+        l_rig1 = rigidity_loss(u1[0], u1[3], u1[4], d, L, cfg.uv_mapping_scale)
         aux["rigidity1"] = l_rig1
         total = total + cfg.rigidity_coeff * l_rig1
         if include_global:
-            l_grig1 = rigidity_loss(uv1[0], uv1[7], uv1[8], gd_fg, L,
+            l_grig1 = rigidity_loss(u1[0], u1[7], u1[8], gd_fg, L,
                                     cfg.uv_mapping_scale)
             aux["global_rigidity1"] = l_grig1
             total = total + cfg.global_rigidity_coeff_fg * l_grig1
 
-        l_flow1 = flow_loss(uv1[0], uv1[5], uv1[6], mfwd, mbwd, L,
+        l_flow1 = flow_loss(u1[0], u1[5], u1[6], mfwd, mbwd, L,
                             cfg.uv_mapping_scale, alpha=a)
         aux["flow1"] = l_flow1
         total = total + cfg.optical_flow_coeff * l_flow1
 
         if dual:
-            l_rig2 = rigidity_loss(uv2[0], uv2[3], uv2[4], d, L,
+            l_rig2 = rigidity_loss(u2[0], u2[3], u2[4], d, L,
                                    cfg.uv_mapping_scale)
             aux["rigidity2"] = l_rig2
             total = total + cfg.rigidity_coeff * l_rig2
             if include_global:
-                l_grig2 = rigidity_loss(uv2[0], uv2[7], uv2[8], gd_bg, L,
+                l_grig2 = rigidity_loss(u2[0], u2[7], u2[8], gd_bg, L,
                                         cfg.uv_mapping_scale)
                 aux["global_rigidity2"] = l_grig2
                 total = total + cfg.global_rigidity_coeff_bg * l_grig2
 
-            l_flow2 = flow_loss(uv2[0], uv2[5], uv2[6], mfwd, mbwd, L,
+            l_flow2 = flow_loss(u2[0], u2[5], u2[6], mfwd, mbwd, L,
                                 cfg.uv_mapping_scale, alpha=1.0 - a)
             aux["flow2"] = l_flow2
             total = total + cfg.optical_flow_coeff * l_flow2
@@ -274,7 +283,7 @@ def make_loss_fn(specs: AtlasSpecs, cfg: AtlasConfig, data: VideoData,
             total = total + cfg.alpha_flow_factor * l_aflow
 
             if include_bootstrap:
-                l_boot = alpha_bootstrap_loss(a, g[:, 15])
+                l_boot = alpha_bootstrap_loss(a, mask)
                 aux["alpha_bootstrap"] = l_boot
                 total = total + cfg.alpha_bootstrapping_factor * l_boot
 
@@ -326,6 +335,93 @@ class FitResult:
     logs: List[Dict[str, float]]
 
 
+def run_fit_schedule(params: Params, specs: AtlasSpecs, data: VideoData,
+                     packed: torch.Tensor, cfg: AtlasConfig,
+                     generator: torch.Generator, n_videos: Optional[int],
+                     start_iteration: int, opt_state: Optional[dict],
+                     on_log: Callable[[int, List[Dict[str, float]]], None],
+                     on_eval: Callable[[int, torch.optim.Adam], None],
+                     rescue_state: Callable[[torch.optim.Adam], dict],
+                     rescue_path: str) -> Tuple[torch.optim.Adam, int]:
+    """The fit loop of the single fit (`n_videos` None: params and samples
+    carry no video axis) and of the multi-video fit (samples (V, B), one
+    loss per video, their sum into one backward), from `start_iteration` to
+    `cfg.iters_num - 1` on the device of `packed`.
+
+    Steps run in chunks; a chunk ends at `steps_per_call`, at the next
+    schedule boundary (global rigidity until `stop_global_rigidity`, alpha
+    bootstrapping until `stop_bootstrapping_iteration`), after the next eval
+    point, or at the fit's end, as in the JAX package.  After each chunk
+    (its one host sync) `on_log(last_iteration, records)` gets the chunk
+    mean of every loss term, one record per video; `on_eval(i, optimizer)`
+    fires when `i % evaluate_every == 0 and i > start_iteration`
+    (src/stage1_neural_atlas.py:246-251).  A non-finite loss dumps
+    `rescue_state(optimizer)` to `rescue_path` and raises.  Params are
+    updated in place; returns the optimizer and the iteration reached."""
+    device = packed.device
+    T, (H, W) = data.num_frames, data.res
+    optimizer = make_optimizer(params, cfg.learning_rate)
+    adam_state_from_host(optimizer, params, opt_state)
+    shape = ((cfg.samples_batch,) if n_videos is None
+             else (n_videos, cfg.samples_batch))
+    boundaries = sorted({cfg.stop_global_rigidity + 1,
+                         cfg.stop_bootstrapping_iteration + 1})
+    eval_every = max(1, cfg.evaluate_every)
+    loss_fns: Dict[Tuple[bool, bool], Callable] = {}
+
+    i = start_iteration
+    while i < cfg.iters_num:
+        # the loss graph of this chunk, and where the chunk ends
+        flags = (cfg.include_global_rigidity_loss
+                 and i <= cfg.stop_global_rigidity,
+                 specs.dual and i <= cfg.stop_bootstrapping_iteration)
+        nxt = i + max(1, cfg.steps_per_call)
+        next_eval = ((i // eval_every) + 1) * eval_every + 1  # run through i%e==0
+        for b in boundaries + [next_eval]:
+            if i < b < nxt:
+                nxt = b
+        nxt = min(nxt, cfg.iters_num)
+        n_steps = nxt - i
+
+        if flags not in loss_fns:
+            loss_fns[flags] = make_loss_fn(specs, cfg, data, *flags)
+        loss_fn = loss_fns[flags]
+        sums: Optional[Dict[str, torch.Tensor]] = None
+        for _ in range(n_steps):
+            j = torch.randint(0, W, shape, generator=generator, device=device)
+            ii = torch.randint(0, H, shape, generator=generator, device=device)
+            f = torch.randint(0, T, shape, generator=generator, device=device)
+            total, aux = loss_fn(params, packed, j, ii, f)
+            optimizer.zero_grad(set_to_none=True)
+            total.sum().backward()
+            optimizer.step()
+            aux = {k: v.detach() for k, v in aux.items()}
+            sums = aux if sums is None else {k: sums[k] + aux[k] for k in sums}
+        i = nxt
+        # the one host sync of the chunk: per-chunk mean of each loss term
+        keys = sorted(sums)
+        vals = (torch.stack([sums[k] for k in keys]) / n_steps).cpu().numpy()
+        vals = vals.reshape(len(keys), -1)
+        recs = [{k: float(vals[n, v]) for n, k in enumerate(keys)}
+                for v in range(vals.shape[1])]
+        bad = [v for v, rec in enumerate(recs) if not np.isfinite(rec["total"])]
+        if bad:
+            # dump a rescue checkpoint and fail loudly (the reference would
+            # silently produce garbage)
+            from ..utils.checkpoint import save_checkpoint
+
+            rescue = save_checkpoint(rescue_path, {**rescue_state(optimizer),
+                                                   "iteration": i})
+            what = recs[0] if n_videos is None else f"video(s) {bad}"
+            raise FloatingPointError(
+                f"non-finite loss at iteration {i - 1}: {what} "
+                f"(state dumped to {rescue})")
+        on_log(i - 1, recs)
+        if (i - 1) % eval_every == 0 and i - 1 > start_iteration:
+            on_eval(i - 1, optimizer)
+    return optimizer, i
+
+
 def fit_atlas(params: Params, specs: AtlasSpecs, data: VideoData,
               cfg: AtlasConfig, generator: torch.Generator,
               start_iteration: int = 0, opt_state: Optional[dict] = None,
@@ -341,80 +437,26 @@ def fit_atlas(params: Params, specs: AtlasSpecs, data: VideoData,
     once, at iteration 10000.  Params are updated in place.
     """
     device = params["mapping1"][0]["w"].device
-    T, (H, W) = data.num_frames, data.res
     # one-gather sampling: the pack is the only fit tensor on the device
     packed = data.with_packed(device).packed
-    optimizer = make_optimizer(params, cfg.learning_rate)
-    adam_state_from_host(optimizer, params, opt_state)
-    batch = cfg.samples_batch
-
-    # the schedule: which loss graph iteration i runs
-    def phase_flags(i: int) -> Tuple[bool, bool]:
-        include_global = (cfg.include_global_rigidity_loss
-                          and i <= cfg.stop_global_rigidity)
-        include_boot = specs.dual and i <= cfg.stop_bootstrapping_iteration
-        return include_global, include_boot
-
-    boundaries = sorted({cfg.stop_global_rigidity + 1,
-                         cfg.stop_bootstrapping_iteration + 1})
-    eval_every = max(1, cfg.evaluate_every)
-    loss_fns: Dict[Tuple[bool, bool], Callable] = {}
     logs: List[Dict[str, float]] = []
 
-    i = start_iteration
-    while i < cfg.iters_num:
-        flags = phase_flags(i)
-        # chunk end: next schedule boundary, next eval point, or fit end
-        nxt = i + max(1, cfg.steps_per_call)
-        for b in boundaries:
-            if i < b < nxt:
-                nxt = b
-        next_eval = ((i // eval_every) + 1) * eval_every + 1  # run through i%e==0
-        if i < next_eval < nxt:
-            nxt = next_eval
-        nxt = min(nxt, cfg.iters_num)
-        n_steps = nxt - i
-
-        if flags not in loss_fns:
-            loss_fns[flags] = make_loss_fn(specs, cfg, data, *flags)
-        loss_fn = loss_fns[flags]
-        sums: Optional[Dict[str, torch.Tensor]] = None
-        for _ in range(n_steps):
-            j = torch.randint(0, W, (batch,), generator=generator, device=device)
-            ii = torch.randint(0, H, (batch,), generator=generator, device=device)
-            f = torch.randint(0, T, (batch,), generator=generator, device=device)
-            total, aux = loss_fn(params, packed, j, ii, f)
-            optimizer.zero_grad(set_to_none=True)
-            total.backward()
-            optimizer.step()
-            aux = {k: v.detach() for k, v in aux.items()}
-            sums = aux if sums is None else {k: sums[k] + aux[k] for k in sums}
-        i = nxt
-        # the one host sync of the chunk: per-chunk mean of each loss term
-        keys = sorted(sums)
-        vals = (torch.stack([sums[k] for k in keys]) / n_steps).cpu().numpy()
-        rec = {k: float(v) for k, v in zip(keys, vals)}
-        if not np.isfinite(rec["total"]):
-            # dump a rescue checkpoint and fail loudly (the reference would
-            # silently produce garbage)
-            from ..utils.checkpoint import save_checkpoint
-
-            rescue = save_checkpoint(rescue_path, {
-                "params": params,
-                "opt_state": adam_state_to_host(optimizer, params),
-                "iteration": i})
-            raise FloatingPointError(
-                f"non-finite loss at iteration {i - 1}: {rec} "
-                f"(state dumped to {rescue})")
-        logs.append({"iteration": i - 1, **rec})
+    def on_log(iteration, recs):
+        logs.append({"iteration": iteration, **recs[0]})
         if log_callback is not None:
-            log_callback(i - 1, rec)
+            log_callback(iteration, recs[0])
 
-        last = i - 1
-        if (eval_callback is not None and last % eval_every == 0
-                and last > start_iteration):
-            eval_callback(last, params, adam_state_to_host(optimizer, params))
+    def on_eval(iteration, optimizer):
+        if eval_callback is not None:
+            eval_callback(iteration, params,
+                          adam_state_to_host(optimizer, params))
 
+    optimizer, i = run_fit_schedule(
+        params, specs, data, packed, cfg, generator, None, start_iteration,
+        opt_state, on_log, on_eval,
+        lambda opt: {"params": params,
+                     "opt_state": adam_state_to_host(opt, params)},
+        rescue_path)
     return FitResult(params, adam_state_to_host(optimizer, params), i, logs)
 
 

@@ -271,10 +271,20 @@ def save_mask_flow_videos(data: VideoData, results_folder: str | Path,
 
 def evaluate_and_save(params: Params, specs: AtlasSpecs, data: VideoData,
                       cfg: AtlasConfig, results_folder: str | Path,
-                      iteration: int, opt_state: Optional[dict] = None
-                      ) -> Tuple[np.ndarray, float]:
+                      iteration: int, opt_state: Optional[dict] = None,
+                      save_video: bool = True, save_ckpt: bool = True,
+                      frame_offset: int = 0, first_saved_frame: int = 0,
+                      psnr_marker: bool = True) -> Tuple[np.ndarray, float]:
     """Render, write the output PNGs, the PSNR marker, the mp4 and the
-    checkpoint.  Returns (rendered (T, H, W, 3), mean PSNR)."""
+    checkpoint.  Returns (rendered (T, H, W, 3), mean PSNR).
+
+    `frame_offset` / `first_saved_frame` serve the chunked long-video path:
+    frame f of `data` saves as `%05d % (f + frame_offset)`, frames below
+    `first_saved_frame` are rendered but not written (the last chunk's
+    overlap, already written by the chunk before it), and the PSNR averages
+    the written frames only.  `save_video`, `save_ckpt` and `psnr_marker`
+    turn off the mp4, the checkpoint and the marker file (the chunked path
+    writes them once for the whole video)."""
     from ..io.media import frames_to_video, write_image
 
     results_folder = Path(results_folder)
@@ -284,21 +294,25 @@ def evaluate_and_save(params: Params, specs: AtlasSpecs, data: VideoData,
     T, (H, W) = data.num_frames, data.res
     video_np = np.asarray(data.video)
     rendered = render_frames(params, specs, T, H, W)
-    psnrs = np.zeros(T)
-    for f in range(T):
-        write_image(rendered[f], out_dir / f"{f:05d}.png")
-        psnrs[f] = psnr(video_np[f], rendered[f], data_range=1.0)
+    psnrs = np.zeros(T - first_saved_frame)
+    for f in range(first_saved_frame, T):
+        write_image(rendered[f], out_dir / f"{f + frame_offset:05d}.png")
+        psnrs[f - first_saved_frame] = psnr(video_np[f], rendered[f],
+                                            data_range=1.0)
 
     mean_psnr = float(psnrs.mean())
     # PSNR marker file, like the reference's `PSNR_<val>` (evaluate.py:782-783)
-    (results_folder / f"PSNR_{mean_psnr:.2f}").touch()
-    frames_to_video(out_dir, results_folder / "reconstruction.mp4", fps=10)
+    if psnr_marker:
+        (results_folder / f"PSNR_{mean_psnr:.2f}").touch()
+    if save_video:
+        frames_to_video(out_dir, results_folder / "reconstruction.mp4", fps=10)
     if cfg.save_diagnostics:
         save_diagnostic_videos(params, specs, data, cfg, results_folder)
-    save_checkpoint(results_folder / "checkpoint", {
-        "params": params,
-        "opt_state": opt_state,
-        "iteration": iteration,
-        "dual": specs.dual,
-    })
+    if save_ckpt:
+        save_checkpoint(results_folder / "checkpoint", {
+            "params": params,
+            "opt_state": opt_state,
+            "iteration": iteration,
+            "dual": specs.dual,
+        })
     return rendered, mean_psnr

@@ -5,8 +5,10 @@ Stages call each other as functions, and every stage reads and writes the
 reference's filesystem artifacts, so each stays independently runnable and
 idempotent.  The port runs the single-atlas path and, with `class_name`
 set, the dual-atlas path (foreground masks, four networks, texture export)
-on one device, with RAFT flow when a RAFT checkpoint is on disk; the
-chunked long-video fit is not ported yet and raises NotImplementedError.
+on one device, with RAFT flow when a RAFT checkpoint is on disk.  A video
+longer than `maximum_number_of_frames` takes the chunked path: equal chunks
+fit at once as one multi-video group (atlas/multifit.py), every frame is
+rendered, and stage 2 runs unbroken over the whole video.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from ..flow import FarnebackFlow, RAFTFlow, preprocess_optical_flow
 from ..io.media import list_frames, read_image, video_to_frames
 from ..utils.checkpoint import load_checkpoint
 from ..utils.convert import atlas_params_from_jax
-from ..utils.device import resolve_device, set_fp32_matmul_precision
+from ..utils.device import (resolve_device, set_fp32_matmul_precision,
+                            synchronize)
 from ..utils.logging import ScalarLogger
 
 
@@ -93,9 +96,111 @@ def _generators(seed: int, device: torch.device):
     return init, pre, fit, pre2
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _chunk_starts(T_all: int, cap: int):
+    """Equal-size chunk starts covering [0, T_all); the last chunk is
+    anchored backward (overlapping its predecessor) so every chunk has the
+    same length and the chunks fit as one multi-video group."""
+    n = -(-T_all // cap)
+    size = -(-T_all // n)
+    starts = [min(k * size, T_all - size) for k in range(n)]
+    return size, starts
+
+
+def _run_stage1_chunked(frames_dir: Path, atlas_cfg: AtlasConfig,
+                        device: torch.device, dual: bool, resy: int, resx: int,
+                        results_folder: Path) -> Dict:
+    """Long-video stage 1: T > maximum_number_of_frames (the JAX package's
+    `_run_stage1_chunked`).
+
+    The reference truncates at the cap and tells users to split long videos
+    by hand (README.md:117), which also resets stage 2's temporal
+    consistency at every split.  Here the video is split into equal chunks
+    (`_chunk_starts`), all chunks fit at once as one V-batched group
+    (atlas/multifit.py), every frame is rendered with continuous numbering,
+    and stage 2 later runs its recurrence unbroken across the whole video.
+    Chunk edges take video-edge flow semantics (zero flow and consistency at
+    a chunk's boundary frame), what a manual split would produce.
+
+    Checkpoint and resume: the group state (params, Adam moments, the fit
+    generator's state) is written to `<stage_1>/checkpoint` at the eval
+    cadence and at the fit's end; with `load_checkpoint` set, a checkpoint
+    of the same chunking resumes the group fit and replays the
+    uninterrupted run's samples.  Only the port's own numpy checkpoints
+    load; one written by the JAX package is refused."""
+    from ..atlas.multifit import fit_group, save_group
+    from ..utils.checkpoint import save_checkpoint
+
+    T_all = len(list_frames(frames_dir))
+    size, starts = _chunk_starts(T_all, atlas_cfg.maximum_number_of_frames)
+    n = len(starts)
+    print(f"[deflicker_torch] {frames_dir.name}: {T_all} frames > cap "
+          f"{atlas_cfg.maximum_number_of_frames} -> {n} chunks of {size}, "
+          "fit as one group", flush=True)
+    datas = [load_video_data(frames_dir, resy, resx, size, use_masks=dual,
+                             start_frame=s) for s in starts]
+    # masked-flow / input diagnostic videos, one set per chunk
+    for k, d in enumerate(datas):
+        save_mask_flow_videos(d, results_folder / f"chunk_{k:02d}")
+    specs = build_specs(atlas_cfg, dual=dual)
+    ckpt_file = results_folder / "checkpoint"
+
+    def save_group_ckpt(iteration, state):
+        save_checkpoint(ckpt_file, {**state, "iteration": int(iteration),
+                                    "chunk_starts": starts, "chunk_size": size,
+                                    "dual": dual})
+
+    resume = None
+    if atlas_cfg.load_checkpoint:
+        path = Path(atlas_cfg.checkpoint_path or ckpt_file)
+        if path.exists():
+            c = load_checkpoint(path)      # refuses a JAX-package checkpoint
+            if "generator_state" not in c or "params_v" not in c:
+                raise ValueError(f"{path} is not a chunked-fit checkpoint of "
+                                 "this package (no generator_state/params_v)")
+            if list(c.get("chunk_starts", [])) == list(starts) \
+                    and c.get("chunk_size") == size:
+                resume = c
+                print(f"[deflicker_torch] resuming the chunked fit at "
+                      f"iteration {int(c['iteration'])} from {path}")
+            else:
+                print(f"[deflicker_torch] checkpoint {path} does not match "
+                      f"this chunking ({c.get('chunk_starts')} vs {starts}) — "
+                      "starting fresh")
+
+    logger = ScalarLogger(results_folder)
+    fit = fit_group(
+        datas, specs, atlas_cfg, _generators(atlas_cfg.seed, device), device,
+        resume=resume, checkpoint_callback=save_group_ckpt,
+        log_callback=lambda i, v, rec: logger.log(
+            i, {f"chunk{v}/{k}": val for k, val in rec.items()}))
+    results = fit["results"]
+
+    t3 = time.time()
+    outputs = []
+    for k in range(n):
+        prev_end = starts[k - 1] + size if k else 0
+        outputs.append(dict(
+            folder=results_folder,
+            texture=results_folder / "texture" / f"chunk_{k:02d}",
+            frame_offset=starts[k], first_saved_frame=max(0, prev_end - starts[k]),
+            save_video=(k == n - 1), save_ckpt=False, psnr_marker=False))
+    psnrs = save_group(results, specs, datas, atlas_cfg, outputs)
+    # weighted by written frames: the backward-anchored last chunk writes
+    # fewer frames than it fits
+    weights = [size - o["first_saved_frame"] for o in outputs]
+    mean_psnr = float(np.average(psnrs, weights=weights))
+    (results_folder / f"PSNR_{mean_psnr:.2f}").touch()
+    synchronize(device)
+    t_render = time.time() - t3
+    logger.close()
+
+    iters = results[0].iteration - fit["start_iteration"]
+    t_fit = fit["t_fit"]
+    return {"psnr": mean_psnr, "num_frames": T_all, "res": (resy, resx),
+            "iterations": iters, "t_pretrain": fit["t_pretrain"],
+            "t_fit": t_fit, "t_render": t_render,
+            "iters_per_sec": n * iters / t_fit if t_fit > 0 else 0.0,
+            "chunks": n}
 
 
 def run_stage1(frames_dir: Path, cfg: PipelineConfig,
@@ -103,9 +208,12 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
                results_root: Optional[Path] = None,
                flow_provider=None) -> Dict:
     """Flow preprocessing + atlas fit + render
-    (src/stage1_neural_atlas[_seg].py main()), single fit.  `dual` reads
-    the `<vid>_seg` masks, fits mapping2 and alpha beside mapping1 and the
-    atlas, and exports the fg/bg textures after the final render."""
+    (src/stage1_neural_atlas[_seg].py main()).  `dual` reads the
+    `<vid>_seg` masks, fits mapping2 and alpha beside mapping1 and the
+    atlas, and exports the fg/bg textures after the final render.  Videos
+    longer than `maximum_number_of_frames` take the chunked path
+    (`_run_stage1_chunked`) instead of the reference's truncation;
+    `iters_per_sec` then counts video-iterations (chunks x steps)."""
     device = torch.device(device)
     t0 = time.time()
     if flow_provider is None:
@@ -124,10 +232,10 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
     resy, resx = _stage1_resolution(frames_dir, cfg.down, dual)
     T_all = len(list_frames(frames_dir))
     if T_all > atlas_cfg.maximum_number_of_frames:
-        raise NotImplementedError(
-            f"{T_all} frames > maximum_number_of_frames "
-            f"{atlas_cfg.maximum_number_of_frames}: the chunked long-video fit "
-            "is a later slice of the port (the video is not truncated)")
+        out = _run_stage1_chunked(frames_dir, atlas_cfg, device, dual, resy,
+                                  resx, results_folder)
+        out.update(results_folder=results_folder, t_flow=t_flow)
+        return out
 
     data = load_video_data(frames_dir, resy, resx,
                            atlas_cfg.maximum_number_of_frames,
@@ -157,7 +265,7 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
             pretrain_mapping(params["mapping2"], specs.mapping2, g_pre2, T, H,
                              W, atlas_cfg.uv_mapping_scale,
                              atlas_cfg.pretrain_iter_number)
-        _sync(device)
+        synchronize(device)
         t_pretrain = time.time() - t1
 
     logger = ScalarLogger(results_folder)
@@ -171,7 +279,7 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
                        start_iteration=start_iteration, opt_state=opt_state,
                        eval_callback=eval_cb,
                        log_callback=lambda i, rec: logger.log(i, rec))
-    _sync(device)
+    synchronize(device)
     t_fit = time.time() - t2
 
     # final render (the reference's eval at iteration iters_num-1 == 10000)
@@ -184,7 +292,7 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
         # set, reference: evaluate.py:203-602)
         export_atlas_artifacts(result.params, specs, data,
                                results_folder / "texture")
-    _sync(device)
+    synchronize(device)
     t_render = time.time() - t3
     logger.log_image(result.iteration - 1, "reconstruction", rendered[0])
     logger.log_image(result.iteration - 1, "input", np.asarray(data.video[0]))
@@ -223,7 +331,7 @@ def run_stage2(frames_dir: Path, cfg: PipelineConfig, device,
                                     unpad=cfg.stage2_unpad)
     engine.run(frames_dir, style_dir, results_root / vid, fps=cfg.fps,
                return_output=False)
-    _sync(device)
+    synchronize(device)
     return {"t_stage2": time.time() - t0,
             "final_dir": results_root / vid / "final" / "output"}
 

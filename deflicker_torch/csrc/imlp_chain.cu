@@ -13,6 +13,12 @@
 //     `_bwd_kernel_stash` :355): the reverse pass reading that stash, with no
 //     recompute.  The stash holds the very cast the remat backward makes
 //     (one `chain_forward` writes both), so its gradients are bit-identical.
+// Every launch also takes a video axis: V independent chains of one shape,
+// each with its own x, weights, biases, output, stash and scratch at a fixed
+// per-video stride, in one launch (the grid's second axis, the dW GEMM's
+// third).  It is the counterpart of what `jax.vmap` makes of the Pallas
+// chain in deflicker_tpu/atlas/multifit.py through the pallas_call batching
+// rule.  A one-video call is the same launch with a grid of one video.
 //
 // Function computed (pre-tanh chain, bf16 operands, f32 accumulation):
 //   h0 = bf16(x)·bf16(W0) + b0
@@ -103,8 +109,8 @@ struct ChainDesc {
   int in_dim[MAXL];      // real fan-in of layer i (skip layers: hidden + E)
   int out_dim[MAXL];     // real fan-out of layer i
   int skip[MAXL];        // 1 where layer i concatenates the input x
-  const bf16* W[MAXL];   // (in_dim, out_dim) row-major
-  const float* b[MAXL];  // (out_dim,)
+  const bf16* W[MAXL];   // (V, in_dim, out_dim) row-major
+  const float* b[MAXL];  // (V, out_dim)
 };
 
 namespace {
@@ -113,6 +119,14 @@ __host__ __device__ __forceinline__ int r16(int v) { return (v + 15) & ~15; }
 __host__ __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ __forceinline__ size_t align256(size_t v) { return (v + 255) & ~size_t(255); }
+
+// layer l's weights and bias of video v
+__device__ __forceinline__ const bf16* layer_w(const ChainDesc& d, int l, int v) {
+  return d.W[l] + (size_t)v * d.in_dim[l] * d.out_dim[l];
+}
+__device__ __forceinline__ const float* layer_b(const ChainDesc& d, int l, int v) {
+  return d.b[l] + (size_t)v * d.out_dim[l];
+}
 
 struct SmemLayout {
   int xld, ald;           // leading dims of the x tile and the activation tile
@@ -402,7 +416,7 @@ __device__ __forceinline__ void gemm_bwd_seg(Acc& acc, const bf16* G, int ldg, i
 // OUTPUT: run the last layer and store `out`; the remat backward's recompute
 // skips it, since the backward does not need the chain's output.
 template <bool STASH, bool OUTPUT>
-__device__ __forceinline__ void chain_forward(const ChainDesc& d, const SmemLayout& L,
+__device__ __forceinline__ void chain_forward(const ChainDesc& d, const SmemLayout& L, int v,
                                               const float* __restrict__ x, int B, int row0,
                                               float* __restrict__ out, unsigned char* smem,
                                               bf16* stash_x, const StashView& sv) {
@@ -428,17 +442,18 @@ __device__ __forceinline__ void chain_forward(const ChainDesc& d, const SmemLayo
     const int N = d.out_dim[l], Np = r16(N), NT = Np >> 4;
     Acc acc;
     zero_acc(acc);
+    const bf16* __restrict__ Wl = layer_w(d, l, v);
     if (l == 0) {
-      gemm_fwd_seg(acc, xs, L.xld, d.E, d.W[0], 0, N, slab0, slab1);
+      gemm_fwd_seg(acc, xs, L.xld, d.E, Wl, 0, N, slab0, slab1);
     } else {
       const int Kh = d.out_dim[l - 1];
-      gemm_fwd_seg(acc, act, L.ald, Kh, d.W[l], 0, N, slab0, slab1);
-      if (d.skip[l]) gemm_fwd_seg(acc, xs, L.xld, d.E, d.W[l], Kh, N, slab0, slab1);
+      gemm_fwd_seg(acc, act, L.ald, Kh, Wl, 0, N, slab0, slab1);
+      if (d.skip[l]) gemm_fwd_seg(acc, xs, L.xld, d.E, Wl, Kh, N, slab0, slab1);
     }
     // gemm_*_seg ends with __syncthreads: nobody reads act any more
     const bool last = (l == d.n_layers - 1);
     bf16* stash = (STASH && !last) ? sv.base + sv.off[l + 1] : nullptr;
-    const float* __restrict__ bias = d.b[l];
+    const float* __restrict__ bias = layer_b(d, l, v);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int ct = warp + NWARP * j;
@@ -477,20 +492,21 @@ __device__ __forceinline__ void chain_forward(const ChainDesc& d, const SmemLayo
   __syncthreads();
 }
 
-// The forward over one tile.  STASH: the same chain, which also fills the
-// caller's `stash`; otherwise `stash` is unused.
+// The forward over one tile of video blockIdx.y.  STASH: the same chain,
+// which also fills the caller's `stash`; otherwise `stash` is unused.
 template <bool STASH>
 __global__ void __launch_bounds__(NTHREADS, FWD_MIN_BLOCKS)
 chain_fwd_kernel(ChainDesc d, const float* __restrict__ x, float* __restrict__ out, int B,
                  bf16* stash) {
   extern __shared__ __align__(128) unsigned char smem[];
   const SmemLayout L = smem_layout(d);
+  const int v = blockIdx.y;
   StashView sv{};
   if (STASH) {
-    sv.base = stash;
-    stash_offsets(d, B, sv.off);
+    sv.base = stash + v * stash_offsets(d, B, sv.off);
   }
-  chain_forward<STASH, true>(d, L, x, B, blockIdx.x * BM, out, smem, nullptr, sv);
+  chain_forward<STASH, true>(d, L, v, x + (size_t)v * B * d.E, B, blockIdx.x * BM,
+                             out + (size_t)v * B * d.out_dim[d.n_layers - 1], smem, nullptr, sv);
 }
 
 // Reverse pass over one tile.  STASHED: `stash` is what a stash forward
@@ -506,11 +522,16 @@ chain_bwd_kernel(ChainDesc d, const float* __restrict__ x, const float* __restri
   const SmemLayout L = smem_layout(d);
   const ScratchLayout S = scratch_layout(d, B, !STASHED);
   const int tile = blockIdx.x, row0 = tile * BM;
+  // video blockIdx.y: its operands, outputs, stash and scratch
+  const int v = blockIdx.y;
+  x += (size_t)v * B * d.E;
+  g += (size_t)v * B * d.out_dim[d.n_layers - 1];
+  if (dx != nullptr) dx += (size_t)v * B * d.E;
+  scratch += (size_t)v * S.bytes;
   bf16* stash_x = reinterpret_cast<bf16*>(scratch + S.stash_x);
   StashView sv;
   if (STASHED) {
-    sv.base = stash;
-    stash_offsets(d, B, sv.off);
+    sv.base = stash + v * stash_offsets(d, B, sv.off);
   } else {
     sv.base = reinterpret_cast<bf16*>(scratch);
     for (int i = 1; i < d.n_layers; ++i) sv.off[i] = S.stashA[i] / sizeof(bf16);
@@ -526,7 +547,7 @@ chain_bwd_kernel(ChainDesc d, const float* __restrict__ x, const float* __restri
             __float2bfloat16(c < d.E ? x[(size_t)gr * d.E + c] : 0.0f);
     }
   } else {
-    chain_forward<true, false>(d, L, x, B, row0, nullptr, smem, stash_x, sv);
+    chain_forward<true, false>(d, L, v, x, B, row0, nullptr, smem, stash_x, sv);
   }
 
   bf16* act = reinterpret_cast<bf16*>(smem + L.off_act);
@@ -561,7 +582,7 @@ chain_bwd_kernel(ChainDesc d, const float* __restrict__ x, const float* __restri
     const int Kkp = r16(Kk), KT = Kkp >> 4;
     Acc acc;
     zero_acc(acc);
-    gemm_bwd_seg(acc, act, L.ald, N, d.W[i], Kk, slab0, slab1);
+    gemm_bwd_seg(acc, act, L.ald, N, layer_w(d, i, v), Kk, slab0, slab1);
     // (ends with __syncthreads: g_i in act is no longer read)
     const bf16* Ai = (i > 0) ? sv.base + sv.off[i] : nullptr;
     bf16* Gp = (i > 0) ? reinterpret_cast<bf16*>(scratch + S.G[i - 1]) : nullptr;
@@ -619,6 +640,7 @@ chain_bwd_kernel(ChainDesc d, const float* __restrict__ x, const float* __restri
 struct DwSeg {
   const bf16* A;  // (Bp, lda) activations feeding rows [rowoff, rowoff + K) of dW
   const bf16* G;  // (Bp, ldg) gradients of the layer output
+  size_t a_vs, g_vs;  // element strides of A and G from one video to the next
   int lda, K, rowoff, ldg, N, woff, tiles_n, tile0;
 };
 
@@ -629,28 +651,34 @@ struct DwDesc {
 
 // one DW_RK-row chunk of A[:, m0 : m0 + DW_T] and G[:, n0 : n0 + DW_T] -> smem;
 // A holds B rows (read as zero past them), G the padded Bp
-__device__ __forceinline__ void load_dw_chunk(bf16* As, bf16* Gs, const DwSeg& sg, int r,
-                                              int m0, int n0, int B) {
+__device__ __forceinline__ void load_dw_chunk(bf16* As, bf16* Gs, const DwSeg& sg,
+                                              const bf16* A, const bf16* G, int r, int m0,
+                                              int n0, int B) {
   constexpr int nv = DW_T / 8;
   for (int idx = threadIdx.x; idx < DW_RK * nv; idx += NTHREADS) {
     const int k = idx / nv, c = (idx - k * nv) << 3;
     const size_t row = (size_t)(r + k);
     const bool oka = m0 + c < sg.lda && r + k < B, okg = n0 + c < sg.ldg;
-    cp_async16(As + k * DW_LD + c, oka ? sg.A + row * sg.lda + m0 + c : sg.A, oka);
-    cp_async16(Gs + k * DW_LD + c, okg ? sg.G + row * sg.ldg + n0 + c : sg.G, okg);
+    cp_async16(As + k * DW_LD + c, oka ? A + row * sg.lda + m0 + c : A, oka);
+    cp_async16(Gs + k * DW_LD + c, okg ? G + row * sg.ldg + n0 + c : G, okg);
   }
 }
 
-// dW partial of one DW_T x DW_T output tile over one row slice: Aᵀ·G.
-// Warp (wm, wn) owns rows wm*32..+32 and columns wn*64..+64 of the tile.
+// dW partial of one DW_T x DW_T output tile over one row slice of video
+// blockIdx.z: Aᵀ·G.  Warp (wm, wn) owns rows wm*32..+32 and columns
+// wn*64..+64 of the tile.
 __global__ void __launch_bounds__(NTHREADS)
-dw_kernel(DwDesc dd, int B, int Bp, float* __restrict__ part, int totalW) {
+dw_kernel(DwDesc dd, int B, int Bp, float* __restrict__ part, int totalW, size_t part_vs) {
   __shared__ __align__(128) bf16 As[2][DW_RK * DW_LD];
   __shared__ __align__(128) bf16 Gs[2][DW_RK * DW_LD];
   const int tblk = blockIdx.x, s = blockIdx.y;
   int si = 0;
   while (si + 1 < dd.nseg && tblk >= dd.seg[si + 1].tile0) ++si;
   const DwSeg& sg = dd.seg[si];
+  const int v = blockIdx.z;
+  const bf16* A = sg.A + v * sg.a_vs;
+  const bf16* G = sg.G + v * sg.g_vs;
+  part += v * part_vs;
   const int lt = tblk - sg.tile0;
   const int tm = lt / sg.tiles_n, tn = lt - tm * sg.tiles_n;
   const int m0 = tm * DW_T, n0 = tn * DW_T;
@@ -671,12 +699,12 @@ dw_kernel(DwDesc dd, int B, int Bp, float* __restrict__ part, int totalW) {
 
   const int r0 = s * DW_ROWS, r1 = imin(Bp, r0 + DW_ROWS);
   const int nchunk = (r1 - r0) / DW_RK;
-  load_dw_chunk(As[0], Gs[0], sg, r0, m0, n0, B);
+  load_dw_chunk(As[0], Gs[0], sg, A, G, r0, m0, n0, B);
   cp_async_commit();
   for (int c = 0; c < nchunk; ++c) {
     const int buf = c & 1;
     if (c + 1 < nchunk) {
-      load_dw_chunk(As[buf ^ 1], Gs[buf ^ 1], sg, r0 + (c + 1) * DW_RK, m0, n0, B);
+      load_dw_chunk(As[buf ^ 1], Gs[buf ^ 1], sg, A, G, r0 + (c + 1) * DW_RK, m0, n0, B);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -723,10 +751,16 @@ dw_kernel(DwDesc dd, int B, int Bp, float* __restrict__ part, int totalW) {
   }
 }
 
-// grads[e] = Σ_slices part[s][e] (dW), then Σ_tiles dbp[t][e'] (db).
+// grads[e] = Σ_slices part[s][e] (dW), then Σ_tiles dbp[t][e'] (db), for
+// video blockIdx.y (part and dbp move by `vs` floats a video, grads by
+// totalW + totalB).
 __global__ void reduce_kernel(const float* __restrict__ part, int S, int totalW,
                               const float* __restrict__ dbp, int ntiles, int totalB,
-                              float* __restrict__ grads) {
+                              float* __restrict__ grads, size_t vs) {
+  const int v = blockIdx.y;
+  part += v * vs;
+  dbp += v * vs;
+  grads += (size_t)v * (totalW + totalB);
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e < totalW) {
     float s = 0.0f;
@@ -740,8 +774,9 @@ __global__ void reduce_kernel(const float* __restrict__ part, int S, int totalW,
   }
 }
 
-int check_desc(const ChainDesc* d, int B) {
+int check_desc(const ChainDesc* d, int B, int V) {
   if (d == nullptr || d->n_layers < 1 || d->n_layers > MAXL || B < 1) return (int)cudaErrorInvalidValue;
+  if (V < 1 || V > 65535) return (int)cudaErrorInvalidValue;
   if (d->E < 1 || d->E > MAXW) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < d->n_layers; ++i) {
     if (d->out_dim[i] < 1 || d->out_dim[i] > MAXW) return (int)cudaErrorInvalidValue;
@@ -753,11 +788,11 @@ int check_desc(const ChainDesc* d, int B) {
   return 0;
 }
 
-// forward launch, with (STASH) or without a caller-owned stash
+// forward launch over V videos, with (STASH) or without a caller-owned stash
 template <bool STASH>
-int launch_fwd(const ChainDesc* d, const float* x, float* out, bf16* stash, int B,
+int launch_fwd(const ChainDesc* d, const float* x, float* out, bf16* stash, int B, int V,
                void* stream) {
-  const int bad = check_desc(d, B);
+  const int bad = check_desc(d, B, V);
   if (bad) return bad;
   if (STASH && stash == nullptr && d->n_layers > 1) return (int)cudaErrorInvalidValue;
   const SmemLayout L = smem_layout(*d);
@@ -767,16 +802,17 @@ int launch_fwd(const ChainDesc* d, const float* x, float* out, bf16* stash, int 
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.bytes);
   if (err != cudaSuccess) return (int)err;
-  chain_fwd_kernel<STASH><<<ntiles, NTHREADS, L.bytes, st>>>(*d, x, out, B, stash);
+  chain_fwd_kernel<STASH><<<dim3(ntiles, V), NTHREADS, L.bytes, st>>>(*d, x, out, B, stash);
   return (int)cudaGetLastError();
 }
 
-// backward launches: the reverse pass (after a recompute, or reading the
-// caller's `stash` when STASHED), the dW GEMM and the reduction
+// backward launches over V videos: the reverse pass (after a recompute, or
+// reading the caller's `stash` when STASHED), the dW GEMM and the reduction;
+// `scratch` holds V per-video scratch areas back to back
 template <bool STASHED>
 int launch_bwd(const ChainDesc* d, const float* x, const float* g, bf16* stash, float* dx,
-               float* grads, int B, void* scratch, void* stream) {
-  const int bad = check_desc(d, B);
+               float* grads, int B, int V, void* scratch, void* stream) {
+  const int bad = check_desc(d, B, V);
   if (bad) return bad;
   if (STASHED && stash == nullptr && d->n_layers > 1) return (int)cudaErrorInvalidValue;
   const SmemLayout L = smem_layout(*d);
@@ -784,11 +820,13 @@ int launch_bwd(const ChainDesc* d, const float* x, const float* g, bf16* stash, 
   cudaStream_t st = (cudaStream_t)stream;
   char* base = (char*)scratch;
 
-  // the same view of the stash as the kernel builds, for the dW GEMM's A
+  // the same view of video 0's stash as the kernel builds, for the dW
+  // GEMM's A; later videos are a stride further
   StashView sv{};
+  size_t stash_vs = S.bytes / sizeof(bf16);
   if (STASHED) {
     sv.base = stash;
-    stash_offsets(*d, B, sv.off);
+    stash_vs = stash_offsets(*d, B, sv.off);
   } else {
     sv.base = reinterpret_cast<bf16*>(base);
     for (int i = 1; i < d->n_layers; ++i) sv.off[i] = S.stashA[i] / sizeof(bf16);
@@ -798,7 +836,8 @@ int launch_bwd(const ChainDesc* d, const float* x, const float* g, bf16* stash, 
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.bytes);
   if (err != cudaSuccess) return (int)err;
-  chain_bwd_kernel<STASHED><<<S.ntiles, NTHREADS, L.bytes, st>>>(*d, x, g, dx, B, base, stash);
+  chain_bwd_kernel<STASHED><<<dim3(S.ntiles, V), NTHREADS, L.bytes, st>>>(*d, x, g, dx, B, base,
+                                                                          stash);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -812,6 +851,8 @@ int launch_bwd(const ChainDesc* d, const float* x, const float* g, bf16* stash, 
       DwSeg& sg = dd.seg[dd.nseg++];
       const bool xseg = (i == 0) || q == 1;
       sg.A = xseg ? reinterpret_cast<const bf16*>(base + S.stash_x) : sv.base + sv.off[i];
+      sg.a_vs = xseg ? S.bytes / sizeof(bf16) : stash_vs;
+      sg.g_vs = S.bytes / sizeof(bf16);
       sg.lda = xseg ? Ep : r16(d->out_dim[i - 1]);
       sg.K = xseg ? d->E : d->out_dim[i - 1];
       sg.rowoff = (q == 1) ? d->out_dim[i - 1] : 0;
@@ -825,14 +866,15 @@ int launch_bwd(const ChainDesc* d, const float* x, const float* g, bf16* stash, 
     }
   }
   float* part = reinterpret_cast<float*>(base + S.part);
-  dw_kernel<<<dim3(tiles, S.S), NTHREADS, 0, st>>>(dd, B, S.Bp, part, S.totalW);
+  dw_kernel<<<dim3(tiles, S.S, V), NTHREADS, 0, st>>>(dd, B, S.Bp, part, S.totalW,
+                                                      S.bytes / sizeof(float));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const int total = S.totalW + S.totalB;
-  reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(part, S.S, S.totalW,
-                                                     reinterpret_cast<const float*>(base + S.dbp),
-                                                     S.ntiles, S.totalB, grads);
+  reduce_kernel<<<dim3((total + 255) / 256, V), 256, 0, st>>>(
+      part, S.S, S.totalW, reinterpret_cast<const float*>(base + S.dbp), S.ntiles, S.totalB,
+      grads, S.bytes / sizeof(float));
   return (int)cudaGetLastError();
 }
 
@@ -840,6 +882,9 @@ int launch_bwd(const ChainDesc* d, const float* x, const float* g, bf16* stash, 
 
 extern "C" {
 
+// Per-video sizes: a V-video call takes V of each, back to back (x, out and
+// g as (V, B, .), weights (V, in, out), biases (V, out), grads V x (all dW,
+// then all db), stash V x imlp_chain_stash_elems, scratch V x the bytes).
 size_t imlp_chain_bwd_scratch_bytes(const ChainDesc* d, int B) {
   return scratch_layout(*d, B, true).bytes;
 }
@@ -853,23 +898,23 @@ size_t imlp_chain_stash_elems(const ChainDesc* d, int B) {
   return stash_offsets(*d, B, nullptr);
 }
 
-int imlp_chain_fwd(const ChainDesc* d, const float* x, float* out, int B, void* stream) {
-  return launch_fwd<false>(d, x, out, nullptr, B, stream);
+int imlp_chain_fwd(const ChainDesc* d, const float* x, float* out, int B, int V, void* stream) {
+  return launch_fwd<false>(d, x, out, nullptr, B, V, stream);
 }
 
 int imlp_chain_fwd_stash(const ChainDesc* d, const float* x, float* out, void* stash, int B,
-                         void* stream) {
-  return launch_fwd<true>(d, x, out, (bf16*)stash, B, stream);
+                         int V, void* stream) {
+  return launch_fwd<true>(d, x, out, (bf16*)stash, B, V, stream);
 }
 
 int imlp_chain_bwd(const ChainDesc* d, const float* x, const float* g, float* dx, float* grads,
-                   int B, void* scratch, void* stream) {
-  return launch_bwd<false>(d, x, g, nullptr, dx, grads, B, scratch, stream);
+                   int B, int V, void* scratch, void* stream) {
+  return launch_bwd<false>(d, x, g, nullptr, dx, grads, B, V, scratch, stream);
 }
 
 int imlp_chain_bwd_stash(const ChainDesc* d, const float* x, const float* g, const void* stash,
-                         float* dx, float* grads, int B, void* scratch, void* stream) {
-  return launch_bwd<true>(d, x, g, (bf16*)stash, dx, grads, B, scratch, stream);
+                         float* dx, float* grads, int B, int V, void* scratch, void* stream) {
+  return launch_bwd<true>(d, x, g, (bf16*)stash, dx, grads, B, V, scratch, stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 """Stage-2 engine: neural filter (U-Net) + sequential local refinement.
 
 The JAX package's filter engine (src/neural_filter_and_refinement.py:89-130
-in the reference), single-video run:
+in the reference):
 
   * the U-Net filter is per-frame independent: frames go through it in
     batches;
@@ -15,7 +15,9 @@ in the reference), single-video run:
   * PNGs quantize by truncation, (clip(x, 0, 1) * 255).astype(uint8).
 
 Public functions take NHWC frames, as the JAX package's do, and transpose
-to NCHW for the modules.  The multi-video lockstep run is a later slice.
+to NCHW for the modules.  `run` streams one video; `run_multi` streams
+several same-resolution videos in lockstep (`refine_span_multi`), each
+video's carry frozen at its own last frame.
 
 Output contract (identical to the reference):
   results/<vid>/neural_filter/concat/%05d.png   (content | atlas | filtered)
@@ -27,7 +29,7 @@ Output contract (identical to the reference):
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -86,6 +88,32 @@ def refine_span(tnet: TransformNet, carry: Tuple[torch.Tensor, torch.Tensor],
             o_prev, p_prev = o_t, p_t
         outs.append(o_t)
     return (o_prev, p_prev), torch.stack(outs, dim=0)
+
+
+@torch.no_grad()
+def refine_span_multi(tnet: TransformNet,
+                      carry: Tuple[torch.Tensor, torch.Tensor],
+                      preds: torch.Tensor, n_valid, dtype=torch.float32):
+    """A span of the refinement recurrence for V videos in lockstep (the JAX
+    package's `refine_span_multi`): every step pushes V frames through
+    TransformNet as one batch, with carry = (O_{t-1}, P_{t-1}) of shape
+    (V, H, W, 3) threaded across calls.  `n_valid` (V ints) says how many
+    frames of the span are real per video: a video's carry freezes at its
+    last real frame, so padding never advances a shorter video's
+    recurrence.  preds: (V, S, H, W, 3).  Returns (new_carry, refined
+    (V, S, H, W, 3))."""
+    o_prev, p_prev = carry
+    n_valid = torch.as_tensor(n_valid, device=preds.device)
+    outs = []
+    for t in range(preds.shape[1]):
+        p_t = preds[:, t]
+        inp = torch.cat([p_t, o_prev, p_t, p_prev], dim=-1)
+        o_t = p_t + _nhwc(tnet(_nchw(inp.to(dtype)))).float()
+        keep = (t < n_valid)[:, None, None, None]
+        o_prev = torch.where(keep, o_t, o_prev)
+        p_prev = torch.where(keep, p_t, p_prev)
+        outs.append(o_t)
+    return (o_prev, p_prev), torch.stack(outs, dim=1)
 
 
 class FilterEngine:
@@ -235,13 +263,124 @@ class FilterEngine:
             reader.shutdown(wait=False)
             writer.shutdown(wait=True)
 
+        self._write_videos(results_dir, save_concat, fps)
+        return np.concatenate(outputs, axis=0) if return_output else None
+
+    @staticmethod
+    def _write_videos(results_dir: Path, save_concat: bool, fps: int) -> None:
         dirs = ([results_dir / "neural_filter" / "concat"] if save_concat
                 else [])
         dirs += [results_dir / "neural_filter" / "output",
                  results_dir / "final" / "output"]
         for d in dirs:
             frames_to_video(d, d.parent / (d.name + ".mp4"), fps=fps)
-        return np.concatenate(outputs, axis=0) if return_output else None
+
+    def run_multi(self, jobs, fps: int = 10, save_concat: bool = True,
+                  return_output: bool = True) -> Optional[List[np.ndarray]]:
+        """Stage 2 over several same-resolution videos, streaming in
+        lockstep (the JAX package's `FilterEngine.run_multi`): the reader
+        thread decodes span k+1 of every video, the device filters the V
+        videos' span k as one batch of frames and refines it with
+        `refine_span_multi`, and the writer thread encodes span k-1.
+
+        jobs: [(content_dir, style_dir, results_dir)].  A video that has
+        ended idles on its last frame, and its carry stays frozen, so it
+        never changes another video's output.  Returns each video's refined
+        (T_v, Hp, Wp, 3) frames when `return_output`."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        import cv2
+
+        metas = []
+        for c, s, r in jobs:
+            cn, sn = list_frames(c), list_frames(s)
+            if len(cn) != len(sn):
+                raise ValueError(f"{len(cn)} content vs {len(sn)} style "
+                                 f"frames ({c})")
+            metas.append((cn, sn, Path(r)))
+        V = len(metas)
+        Ts = [len(cn) for cn, _, _ in metas]
+        shapes = {read_image(cn[0]).shape[:2] for cn, _, _ in metas}
+        if len(shapes) != 1:
+            raise ValueError(f"run_multi needs same-resolution videos, got "
+                             f"{shapes} (group by shape first)")
+        H, W = shapes.pop()
+        padder = Padder(H, W, divisor=32, mode="other")
+        S = self.span
+        T_max = max(Ts)
+        spans = [(s0, min(T_max, s0 + S)) for s0 in range(0, T_max, S)]
+
+        def load_span(s0, s1):
+            n = s1 - s0
+            content = np.zeros((V, n, H, W, 3), np.uint8)
+            style = np.zeros((V, n, H, W, 3), np.uint8)
+            for v, (cn, sn, _) in enumerate(metas):
+                for k in range(n):
+                    t = min(s0 + k, Ts[v] - 1)     # ended: its last frame
+                    content[v, k] = self._read_u8(cn[t])
+                    si = self._read_u8(sn[t])
+                    if si.shape[:2] != (H, W):
+                        si = cv2.resize(si, (W, H),
+                                        interpolation=cv2.INTER_LINEAR)
+                    style[v, k] = si
+            return content, style
+
+        reader = ThreadPoolExecutor(max_workers=1)
+        writer = ThreadPoolExecutor(max_workers=1)
+        pending = []
+        outputs = [[] for _ in range(V)] if return_output else None
+        try:
+            nxt = reader.submit(load_span, *spans[0])
+            carry = None
+            for k, (s0, s1) in enumerate(spans):
+                content, style = nxt.result()
+                if k + 1 < len(spans):
+                    nxt = reader.submit(load_span, *spans[k + 1])
+                n = s1 - s0
+                flat = self._filter_all(content.reshape(V * n, H, W, 3),
+                                        style.reshape(V * n, H, W, 3), padder)
+                preds = flat.reshape(V, n, *flat.shape[1:])
+                if carry is None:
+                    carry = (preds[:, 0], preds[:, 0])     # O_0 = P_0 per video
+                    body, offset = preds[:, 1:], 1
+                else:
+                    body, offset = preds, 0
+                nb = int(body.shape[1])
+                if nb:
+                    # each video's real frames of this span's body
+                    nv = np.clip(np.asarray(Ts) - (s0 + offset), 0, nb)
+                    carry, refined = refine_span_multi(self.tnet, carry, body,
+                                                       nv, self.dtype)
+                else:
+                    refined = body
+                if offset:
+                    refined = torch.cat([preds[:, :1], refined], dim=1)
+                preds_u8 = _to_u8(preds)
+                refined_u8 = _to_u8(refined)
+                while len(pending) > 2 * V:      # ~2 spans in flight at most
+                    pending.pop(0).result()
+                for v, (_, _, rdir) in enumerate(metas):
+                    nreal = min(Ts[v], s1) - s0
+                    if nreal <= 0:
+                        continue                  # this video has ended
+                    pending.append(writer.submit(
+                        self._write_span, s0, content[v, :nreal],
+                        style[v, :nreal], preds_u8[v, :nreal],
+                        refined_u8[v, :nreal], rdir, save_concat, (W, H),
+                        padder))
+                    if return_output:
+                        outputs[v].append(refined[v, :nreal].cpu().numpy())
+            for f in pending:
+                f.result()
+        finally:
+            reader.shutdown(wait=False)
+            writer.shutdown(wait=True)
+
+        for _, _, rdir in metas:
+            self._write_videos(rdir, save_concat, fps)
+        if not return_output:
+            return None
+        return [np.concatenate(o, axis=0) for o in outputs]
 
 
 def _resolve_ckpt(path: Optional[str | Path]) -> Optional[Path]:

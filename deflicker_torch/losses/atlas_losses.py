@@ -5,7 +5,9 @@ subsets of the batch for the flow losses; as in the JAX package these
 reduce with multiply-by-mask, normalized by the mask population — the same
 mean over the same samples.  The engine evaluates all coordinate variants in
 one fused forward per network; these functions consume the per-sample
-results.
+results.  Every loss reduces over the sample axis (the last one left after
+the channel sums) only, so inputs with a leading video axis give one loss
+per video.
 """
 
 from __future__ import annotations
@@ -23,16 +25,18 @@ def safe_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 
 def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """sum(values * mask) / sum(mask), 0 when the mask is empty."""
+    """sum(values * mask) / sum(mask) over the sample axis, 0 when the mask
+    is empty."""
     mask = mask.to(values.dtype)
-    denom = mask.sum()
-    return torch.where(denom > 0, (values * mask).sum() / denom.clamp(min=1.0),
+    denom = mask.sum(-1)
+    return torch.where(denom > 0,
+                       (values * mask).sum(-1) / denom.clamp(min=1.0),
                        torch.zeros_like(denom))
 
 
 def rgb_loss(rgb_pred: torch.Tensor, rgb_gt: torch.Tensor) -> torch.Tensor:
     """mean ||pred - gt||^2 over the batch (src/stage1_neural_atlas.py:194)."""
-    return torch.mean(torch.sum((rgb_pred - rgb_gt) ** 2, dim=-1))
+    return torch.mean(torch.sum((rgb_pred - rgb_gt) ** 2, dim=-1), dim=-1)
 
 
 def gradient_loss(rgb_pred, rgb_xplus1, rgb_yplus1, dx_gt, dy_gt):
@@ -40,7 +44,7 @@ def gradient_loss(rgb_pred, rgb_xplus1, rgb_yplus1, dx_gt, dy_gt):
     loss_utils.py:134-170)."""
     ex = torch.sum((dx_gt - (rgb_xplus1 - rgb_pred)) ** 2, dim=-1)
     ey = torch.sum((dy_gt - (rgb_yplus1 - rgb_pred)) ** 2, dim=-1)
-    return torch.mean(ex + ey)
+    return torch.mean(ex + ey, dim=-1)
 
 
 def rigidity_loss(uv, uv_yminus, uv_xminus, derivative_amount: float,
@@ -76,7 +80,7 @@ def rigidity_loss(uv, uv_yminus, uv_xminus, derivative_amount: float,
     norm_inv = torch.sqrt(torch.clamp(
         inv_a ** 2 + inv_b ** 2 + inv_c ** 2 + inv_d ** 2, min=1e-24))
     per_sample = norm_jtj + norm_inv
-    return torch.mean(per_sample) if reduce else per_sample
+    return torch.mean(per_sample, dim=-1) if reduce else per_sample
 
 
 def flow_loss(uv, uv_match_fwd, uv_match_bwd, mask_fwd, mask_bwd,
@@ -103,7 +107,7 @@ def _squeeze_to(v: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 def sparsity_loss(rgb_fg: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """mean ||rgb_fg * (1 - alpha)||^2 (src/stage1_neural_atlas_seg.py:244-248)."""
-    return torch.mean(torch.sum((rgb_fg * (1.0 - alpha)) ** 2, dim=-1))
+    return torch.mean(torch.sum((rgb_fg * (1.0 - alpha)) ** 2, dim=-1), dim=-1)
 
 
 def alpha_bootstrap_loss(alpha: torch.Tensor, mask_gt: torch.Tensor
@@ -112,7 +116,7 @@ def alpha_bootstrap_loss(alpha: torch.Tensor, mask_gt: torch.Tensor
     (src/stage1_neural_atlas_seg.py:301-302)."""
     alpha = _squeeze_to(alpha, mask_gt)
     return torch.mean(-mask_gt * torch.log(alpha)
-                      - (1.0 - mask_gt) * torch.log(1.0 - alpha))
+                      - (1.0 - mask_gt) * torch.log(1.0 - alpha), dim=-1)
 
 
 def alpha_flow_loss(alpha, alpha_match_fwd, alpha_match_bwd,

@@ -9,13 +9,18 @@ Replicated semantics (reference src/models/stage_1/implicit_neural_networks.py):
     (the reference's `input = x.detach().clone()`);
   * ReLU before each non-first layer, skip-concat before the layer matmul,
     tanh on the output.
+
+Every function also takes V independent networks of one spec stacked on a
+leading video axis — weights (V, in, out), biases (V, out), inputs
+(V, ..., input_dim) — the multi-video fit's counterpart of `jax.vmap` over
+an IMLP.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -64,10 +69,18 @@ def positional_encoding(x: torch.Tensor, positional_dim: int) -> torch.Tensor:
 
 
 def imlp_init(spec: IMLPSpec, generator: torch.Generator,
-              device="cpu", dtype=torch.float32):
+              device="cpu", dtype=torch.float32, n_videos: Optional[int] = None):
     """Parameters as torch nn.Linear initializes them: W and b uniform in
     ±1/sqrt(fan_in).  `generator` is a CPU generator, so a seed gives the
-    same weights on every device."""
+    same weights on every device.  `n_videos` = V stacks V networks on a
+    leading axis, drawn one whole network after another: network v equals
+    the v-th of V successive one-network calls."""
+    if n_videos is not None:
+        nets = [imlp_init(spec, generator, "cpu", dtype)
+                for _ in range(n_videos)]
+        return [{k: torch.stack([net[l][k].detach() for net in nets])
+                 .to(device).requires_grad_() for k in ("w", "b")}
+                for l in range(len(spec.layer_dims()))]
     params = []
     for fan_in, fan_out in spec.layer_dims():
         bound = 1.0 / math.sqrt(fan_in)
@@ -80,6 +93,11 @@ def imlp_init(spec: IMLPSpec, generator: torch.Generator,
     return params
 
 
+def is_batched(params) -> bool:
+    """True when the layers carry a leading video axis."""
+    return params[0]["w"].dim() == 3
+
+
 def _head(h: torch.Tensor, spec: IMLPSpec) -> torch.Tensor:
     if spec.use_tanh:
         h = torch.tanh(h)
@@ -89,7 +107,12 @@ def _head(h: torch.Tensor, spec: IMLPSpec) -> torch.Tensor:
 
 
 def imlp_apply(params, x: torch.Tensor, spec: IMLPSpec) -> torch.Tensor:
-    """The plain f32 IMLP on coordinates x (..., input_dim)."""
+    """The plain f32 IMLP on coordinates x (..., input_dim); with a video
+    axis on the params, x is (V, ..., input_dim) and network v reads x[v]."""
+    batched = is_batched(params)
+    lead = x.shape[:-1]
+    if batched:
+        x = x.reshape(x.shape[0], -1, x.shape[-1])
     if spec.use_positional:
         x = positional_encoding(x, spec.positional_dim)
     skip_input = x.detach()
@@ -99,7 +122,9 @@ def imlp_apply(params, x: torch.Tensor, spec: IMLPSpec) -> torch.Tensor:
             h = torch.relu(h)
         if i in spec.skip_layers:
             h = torch.cat([h, skip_input.to(h.dtype)], dim=-1)
-        h = h @ layer["w"] + layer["b"]
+        h = h @ layer["w"] + (layer["b"][:, None] if batched else layer["b"])
+    if batched:
+        h = h.reshape(*lead, h.shape[-1])
     return _head(h, spec)
 
 
@@ -111,12 +136,15 @@ def imlp_apply_fused(params, x: torch.Tensor, spec: IMLPSpec,
     kernel (its plain twin for CPU tensors).  bf16 is the fit's
     fit_precision="default" numerics; the kernel computes bf16 only.
     `stash_bwd` picks the stash pair of kernels (the forward writes its
-    activations, the backward reads them) over the remat pair."""
+    activations, the backward reads them) over the remat pair.  With a
+    video axis on the params (x (V, ..., input_dim)) one kernel launch runs
+    all V networks."""
     from ..ops.cuda.imlp_kernel import fused_imlp_linear_chain
 
     lead = x.shape[:-1]
     if spec.use_positional:
         x = positional_encoding(x, spec.positional_dim)
-    h = fused_imlp_linear_chain(params, x.reshape(-1, x.shape[-1]),
+    rows = (x.shape[0], -1) if is_batched(params) else (-1,)
+    h = fused_imlp_linear_chain(params, x.reshape(*rows, x.shape[-1]),
                                 spec.skip_layers, compute_dtype, stash_bwd)
     return _head(h.reshape(*lead, -1), spec)

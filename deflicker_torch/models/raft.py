@@ -42,7 +42,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.convex_upsample import convex_upsample_flow
-from ..ops.cuda.corr_kernel import corr_lookup_cuda, corr_lookup_plain
+from ..ops.cuda.corr_kernel import (corr_lookup_cuda, corr_lookup_plain,
+                                   select_body)
 from ..utils.device import set_fp32_matmul_precision
 
 CORR_LEVELS = 4
@@ -344,8 +345,9 @@ def raft_flow(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
 
     corr_mode: 'materialized' = all-pairs volume + pyramid; 'online' =
     window correlation on the fly by gathers from an f32 feature pyramid;
-    'kernel' = the same from a bf16-stored pyramid through the CUDA kernel
-    (its plain twin for CPU tensors); 'auto' = the kernel on a CUDA device,
+    'kernel' = the same from a bf16-stored pyramid through the CUDA kernel,
+    in the body DEFLICKER_CORR_SHARED / DEFLICKER_CORR_RESIDENT select (its
+    plain twin for CPU tensors); 'auto' = the kernel on a CUDA device,
     and on the CPU materialized while the pyramid stays under ~2 GB, else
     online.
     """
@@ -376,8 +378,14 @@ def raft_flow(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
         # sums stay f32
         stored = [lvl.to(torch.bfloat16).contiguous()
                   for lvl in build_fmap_pyramid(fmap2)]
-        fn = corr_lookup_cuda if fmap1.is_cuda else corr_lookup_plain
-        lookup = lambda coords: fn(fmap1, stored, coords.contiguous())
+        if fmap1.is_cuda:
+            # the body switches are read once per solve; every body computes
+            # the plain twin's function, so the CPU path is the twin for all
+            body = select_body()
+            lookup = lambda coords: corr_lookup_cuda(
+                fmap1, stored, coords.contiguous(), body=body)
+        else:
+            lookup = lambda coords: corr_lookup_plain(fmap1, stored, coords)
     else:
         fpyr = build_fmap_pyramid(fmap2)
         lookup = lambda coords: corr_lookup_online(fmap1, fpyr, coords)

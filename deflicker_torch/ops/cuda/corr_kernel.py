@@ -1,17 +1,29 @@
 """RAFT correlation-window lookup: the CUDA kernel's wrapper and its plain twin.
 
 The CUDA source is `deflicker_torch/csrc/corr_lookup.cu` (its header says
-which TPU kernel it replaces, its bound and its design).  This module:
+which TPU kernels it replaces, its bound and its design).  It holds one
+function under three memory schedules ("bodies"): "band" (the default),
+"shared" (a block stages the union window of its 8 pixels in shared memory
+when the windows cluster) and "resident" (small levels held whole in shared
+memory).  This module:
 
   * `corr_lookup_cuda` checks its tensors, allocates the output with
-    `torch.empty`, launches on the current stream without synchronising,
-    raises on a non-zero `cudaGetLastError()`, and counts lookups in
-    `launches["lookup"]` (one per call: the four levels are one launch);
+    `torch.empty`, launches the chosen body on the current stream without
+    synchronising, raises on a non-zero `cudaGetLastError()`, and counts
+    lookups in `launches["lookup"]`, `["lookup_shared"]` or
+    `["lookup_resident"]` (one per call: the four levels are one launch);
+  * `select_body` reads the JAX package's switches (DEFLICKER_CORR_SHARED,
+    DEFLICKER_CORR_RESIDENT; the shared body wins, as in
+    `corr_lookup_pallas`), and `resident_levels` picks the levels the
+    resident body keeps in shared memory (DEFLICKER_CORR_RESIDENT_MAX_MB
+    gates a level's bytes per batch element, capped by what a block's
+    shared memory holds);
   * `corr_lookup_plain` is the same function in plain PyTorch, by gathers in
     pixel chunks: f2 is read from whatever dtype the pyramid is stored in
     (bf16 for the kernel's twin, f32 for the online mode of models/raft.py)
-    and every product and sum is f32.  CPU tests and the on-card comparison
-    use it; nothing on the main path does when the tensors are on the card.
+    and every product and sum is f32.  It is the twin of all three bodies
+    (they compute one function).  CPU tests and the on-card comparison use
+    it; nothing on the main path does when the tensors are on the card.
 
 Both compute, for pixel p, level l and c = coords[p] / 2^l (clamped to
 [-(r+2), size-1+r+2], which changes no value: a window it moves was all zero
@@ -28,7 +40,8 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Sequence
+import os
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -36,13 +49,55 @@ MAX_LEVELS = 8
 KERNEL_RADIUS = 4
 KERNEL_DIMS = (32, 64, 128, 256)
 
-# lookups launched by `corr_lookup_cuda` (one kernel launch per call)
-launches = {"lookup": 0}
+BODIES = ("band", "shared", "resident")
+_BODY_CODE = {"band": 0, "shared": 1, "resident": 2}
+_COUNTER = {"band": "lookup", "shared": "lookup_shared",
+            "resident": "lookup_resident"}
+
+# lookups launched by `corr_lookup_cuda`, by body (one kernel launch per call)
+launches = {"lookup": 0, "lookup_shared": 0, "lookup_resident": 0}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def select_body() -> str:
+    """The body the JAX package's switches select: DEFLICKER_CORR_SHARED=1
+    takes precedence over DEFLICKER_CORR_RESIDENT=1 (as in
+    `corr_lookup_pallas`); neither set is the band body."""
+    if os.environ.get("DEFLICKER_CORR_SHARED", "0") == "1":
+        return "shared"
+    if os.environ.get("DEFLICKER_CORR_RESIDENT", "0") == "1":
+        return "resident"
+    return "band"
+
+
+def resident_gate_bytes() -> Optional[int]:
+    """DEFLICKER_CORR_RESIDENT_MAX_MB in bytes, or None when unset.  The
+    JAX package's 5 MB default sized TPU VMEM; here a block's shared memory
+    is the only default limit."""
+    mb = os.environ.get("DEFLICKER_CORR_RESIDENT_MAX_MB")
+    return int(float(mb) * 1024 * 1024) if mb else None
+
+
+def resident_levels(level_shapes: Sequence[Tuple[int, int]], D: int,
+                    capacity: int, gate: Optional[int] = None
+                    ) -> Tuple[int, ...]:
+    """The levels the resident body holds in shared memory: from the
+    coarsest up, each level whose bf16 bytes per batch element (H_l W_l D 2)
+    pass `gate` (when given) while the kept levels' sum fits `capacity`.
+    The others take the band body's loads inside the same launch."""
+    kept, used = [], 0
+    limit = capacity if gate is None else min(gate, capacity)
+    for l in reversed(range(len(level_shapes))):
+        hl, wl = level_shapes[l]
+        nbytes = hl * wl * D * 2
+        if 0 < nbytes <= limit and used + nbytes <= capacity:
+            kept.append(l)
+            used += nbytes
+    return tuple(sorted(kept))
 
 
 def _level_sizes(H: int, W: int, n: int):
@@ -134,22 +189,45 @@ def _library():
 
     lib = load("corr_lookup")
     if not getattr(lib, "_deflicker_typed", False):
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.corr_lookup.argtypes = [P, P, P, P, I, I, I, I, P]
+        P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+        lib.corr_lookup.argtypes = [P, P, P, P, I, I, I, I, I, U, I, P, P]
         lib.corr_lookup.restype = I
+        lib.corr_resident_capacity.argtypes = []
+        lib.corr_resident_capacity.restype = ctypes.c_longlong
         lib._deflicker_typed = True
     return lib
 
 
+def resident_capacity() -> int:
+    """Bytes of a block's shared memory the resident body can give to
+    levels on the current CUDA device."""
+    cap = _library().corr_resident_capacity()
+    if cap < 0:
+        raise RuntimeError("corr_resident_capacity failed: no CUDA device")
+    return int(cap)
+
+
+def _resident_tile(B: int, N: int, device) -> int:
+    """Pixels a resident block covers: about one wave of one block per SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = max(1, sms // B)
+    return -(-N // tiles)
+
+
 def corr_lookup_cuda(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
-                     coords: torch.Tensor, radius: int = KERNEL_RADIUS
+                     coords: torch.Tensor, radius: int = KERNEL_RADIUS,
+                     body: str = "band", staged: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
     """Kernel launch: fmap1 (B, H, W, D) f32, pyramid [(B, H_l, W_l, D)]
     bf16 with floor-halved levels, coords (B, H, W, 2) f32, all contiguous
     on one CUDA device -> (B, H, W, L*81) f32.  D in {32, 64, 128, 256},
-    radius 4."""
+    radius 4.  `body` is one of BODIES; for "shared", `staged` may be an
+    int32 tensor of L zeros on the device, to which the kernel adds the
+    number of blocks that staged their union window at each level."""
     if not fmap1.is_cuda:
         raise ValueError("the CUDA correlation kernel needs CUDA tensors")
+    if body not in BODIES:
+        raise ValueError(f"unknown correlation body {body!r}, want one of {BODIES}")
     _check_shapes(fmap1, fmap2_pyramid, coords)
     B, H, W, D = fmap1.shape
     if radius != KERNEL_RADIUS or D not in KERNEL_DIMS:
@@ -168,16 +246,29 @@ def corr_lookup_cuda(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
                              f"on {fmap1.device}")
         d.H[l], d.W[l] = lvl.shape[1], lvl.shape[2]
         d.f2[l] = lvl.data_ptr()
+    if staged is not None and (body != "shared" or staged.dtype != torch.int32
+                               or staged.shape != (d.n_levels,)
+                               or staged.device != fmap1.device):
+        raise ValueError(f"staged must be an int32 ({d.n_levels},) tensor on "
+                         f"{fmap1.device}, with the shared body")
     K = 2 * radius + 1
     out = torch.empty((B, H, W, d.n_levels * K * K), dtype=torch.float32,
                       device=fmap1.device)
     if B * H * W == 0:
         return out
-    err = _library().corr_lookup(
+    lib = _library()
+    mask, tile = 0, 1
+    if body == "resident":
+        keep = resident_levels([tuple(lvl.shape[1:3]) for lvl in fmap2_pyramid],
+                               D, resident_capacity(), resident_gate_bytes())
+        mask = sum(1 << l for l in keep)
+        tile = _resident_tile(B, H * W, fmap1.device)
+    err = lib.corr_lookup(
         ctypes.byref(d), fmap1.data_ptr(), coords.data_ptr(), out.data_ptr(),
-        B, H * W, D, radius,
+        B, H * W, D, radius, _BODY_CODE[body], mask, tile,
+        staged.data_ptr() if staged is not None else None,
         torch.cuda.current_stream(fmap1.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"corr_lookup failed: CUDA error {err}")
-    launches["lookup"] += 1
+        raise RuntimeError(f"corr_lookup ({body} body) failed: CUDA error {err}")
+    launches[_COUNTER[body]] += 1
     return out

@@ -10,7 +10,9 @@ which TPU kernels it replaces, its bound and its design).  This module:
     the backward reads it) check their tensors, allocate outputs, stash and
     scratch with `torch.empty`, launch on the current stream, raise on a
     non-zero `cudaGetLastError()`, and count launches in `launches["fwd"]`,
-    `["bwd"]`, `["fwd_stash"]`, `["bwd_stash"]`;
+    `["bwd"]`, `["fwd_stash"]`, `["bwd_stash"]` (and, for calls with a
+    video axis, `["fwd_v"]`, `["bwd_v"]`, `["fwd_stash_v"]`,
+    `["bwd_stash_v"]`);
   * `imlp_chain_fwd_plain` / `imlp_chain_bwd_plain` and
     `imlp_chain_fwd_stash_plain` / `imlp_chain_bwd_stash_plain` are the same
     arithmetic in plain PyTorch — bf16 operands emulated as
@@ -24,7 +26,12 @@ which TPU kernels it replaces, its bound and its design).  This module:
     tensors anywhere else.
 
 Layouts follow the JAX package: x (B, E) is the already-encoded input,
-weights are (in, out), and the output is the pre-tanh (B, out) chain.
+weights are (in, out), and the output is the pre-tanh (B, out) chain.  Every
+function also takes a leading video axis — x (V, B, E), weights (V, in,
+out), biases (V, out) — for V independent chains of one shape: the
+multi-video fit's counterpart of `jax.vmap` over the Pallas chain.  The
+kernels run all V in one launch; the plain twins loop over the videos, so a
+V-video twin equals V one-video twins bit for bit.
 """
 
 from __future__ import annotations
@@ -38,8 +45,10 @@ MAXL = 16
 MAX_WIDTH = 256
 
 # launches of each kernel wrapper (a bwd launch is the chain, dW and reduce
-# kernels of one backward call)
-launches = {"fwd": 0, "bwd": 0, "fwd_stash": 0, "bwd_stash": 0}
+# kernels of one backward call); "_v": calls with a video axis, one launch
+# for all V videos
+launches = {"fwd": 0, "bwd": 0, "fwd_stash": 0, "bwd_stash": 0,
+            "fwd_v": 0, "bwd_v": 0, "fwd_stash_v": 0, "bwd_stash_v": 0}
 
 
 def reset_launches() -> None:
@@ -59,13 +68,35 @@ def _cast(t: torch.Tensor, compute_dtype) -> torch.Tensor:
 
 
 def _check_layers(E: int, weights: Sequence[torch.Tensor],
-                  skip_layers: Sequence[int]) -> None:
+                  skip_layers: Sequence[int], lead: tuple = ()) -> None:
     for i, w in enumerate(weights):
-        kept = E if i == 0 else weights[i - 1].shape[1]
+        kept = E if i == 0 else weights[i - 1].shape[-1]
         want = kept + (E if (i > 0 and i in skip_layers) else 0)
-        if w.dim() != 2 or w.shape[0] != want:
+        if w.dim() != 2 + len(lead) or w.shape[:-2] != lead or w.shape[-2] != want:
             raise ValueError(f"layer {i}: weight {tuple(w.shape)} does not take "
-                             f"{want} inputs")
+                             f"{want} inputs (video axis {lead})")
+
+
+def _per_video(fn, xe, weights, biases, skip_layers, *per_video_args, **kw):
+    """fn over each video of a (V, B, E) call (per_video_args also carry the
+    video axis; a list argument is split element by element)."""
+    outs = []
+    for v in range(xe.shape[0]):
+        args = [[t[v] for t in a] if isinstance(a, (list, tuple)) else a[v]
+                for a in per_video_args]
+        outs.append(fn(xe[v], [w[v] for w in weights], [b[v] for b in biases],
+                       skip_layers, *args, **kw))
+    return outs
+
+
+def _stack(items):
+    """Stack per-video results: tensors, None, or lists of tensors."""
+    first = items[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.stack(items)
+    return [_stack(list(col)) for col in zip(*items)]
 
 
 def _forward_plain(xe, weights, biases, skip_layers, compute_dtype,
@@ -129,7 +160,11 @@ def imlp_chain_fwd_plain(xe: torch.Tensor, weights: Sequence[torch.Tensor],
                          skip_layers: Sequence[int],
                          compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Pre-tanh chain output (B, out) — `_fwd_kernel` through `_layer_fwd`
-    (v2 split skip) of the TPU kernel, in plain PyTorch."""
+    (v2 split skip) of the TPU kernel, in plain PyTorch.  With a video axis:
+    (V, B, out), video by video."""
+    if xe.dim() == 3:
+        return _stack(_per_video(imlp_chain_fwd_plain, xe, weights, biases,
+                                 skip_layers, compute_dtype=compute_dtype))
     return _forward_plain(xe, weights, biases, skip_layers, compute_dtype,
                           last=True)[2]
 
@@ -143,7 +178,12 @@ def imlp_chain_bwd_plain(xe: torch.Tensor, weights: Sequence[torch.Tensor],
     """(dx, [dW_i], [db_i]) of the pre-tanh chain for output gradient g —
     the remat backward (`_bwd_kernel` + `_reverse_pass`, v2) in plain
     PyTorch: recompute the post-relu activations in the compute dtype, then
-    walk the chain in reverse."""
+    walk the chain in reverse.  With a video axis, every result gains it."""
+    if xe.dim() == 3:
+        outs = _per_video(imlp_chain_bwd_plain, xe, weights, biases,
+                          skip_layers, g, need_dx=need_dx,
+                          compute_dtype=compute_dtype)
+        return tuple(_stack([o[k] for o in outs]) for k in range(3))
     xc, stash, _ = _forward_plain(xe, weights, biases, skip_layers,
                                   compute_dtype, last=False)
     return _reverse_plain(xc, weights, skip_layers, stash, g, need_dx,
@@ -159,7 +199,11 @@ def imlp_chain_fwd_stash_plain(xe: torch.Tensor,
     """(out, stash) — `_fwd_kernel_stash` in plain PyTorch: the chain output
     and, for layers 1..n-1, the (B, width) post-relu, pre-concat input in
     the compute dtype (held as f32 values), the very cast the remat backward
-    makes."""
+    makes.  With a video axis, every result gains it."""
+    if xe.dim() == 3:
+        outs = _per_video(imlp_chain_fwd_stash_plain, xe, weights, biases,
+                          skip_layers, compute_dtype=compute_dtype)
+        return _stack([o[0] for o in outs]), _stack([o[1] for o in outs])
     _, stash, h = _forward_plain(xe, weights, biases, skip_layers,
                                  compute_dtype, last=True)
     return h, stash[1:]
@@ -177,7 +221,12 @@ def imlp_chain_bwd_stash_plain(xe: torch.Tensor,
                                           List[torch.Tensor]]:
     """(dx, [dW_i], [db_i]) from the forward's stash, no recompute —
     `_bwd_kernel_stash` in plain PyTorch.  The skip input is cast again
-    from xe."""
+    from xe.  With a video axis, the stash and every result gain it."""
+    if xe.dim() == 3:
+        outs = _per_video(imlp_chain_bwd_stash_plain, xe, weights, biases,
+                          skip_layers, list(stash), g, need_dx=need_dx,
+                          compute_dtype=compute_dtype)
+        return tuple(_stack([o[k] for o in outs]) for k in range(3))
     _check_layers(xe.shape[1], weights, skip_layers)
     if len(stash) != len(weights) - 1:
         raise ValueError(f"need {len(weights) - 1} stash layers, "
@@ -210,17 +259,17 @@ def _library():
         P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
         lib.imlp_chain_bwd_scratch_bytes.argtypes = [P, I]
         lib.imlp_chain_bwd_scratch_bytes.restype = S
-        lib.imlp_chain_fwd.argtypes = [P, P, P, I, P]
+        lib.imlp_chain_fwd.argtypes = [P, P, P, I, I, P]
         lib.imlp_chain_fwd.restype = I
-        lib.imlp_chain_bwd.argtypes = [P, P, P, P, P, I, P, P]
+        lib.imlp_chain_bwd.argtypes = [P, P, P, P, P, I, I, P, P]
         lib.imlp_chain_bwd.restype = I
         lib.imlp_chain_bwd_stash_scratch_bytes.argtypes = [P, I]
         lib.imlp_chain_bwd_stash_scratch_bytes.restype = S
         lib.imlp_chain_stash_elems.argtypes = [P, I]
         lib.imlp_chain_stash_elems.restype = S
-        lib.imlp_chain_fwd_stash.argtypes = [P, P, P, P, I, P]
+        lib.imlp_chain_fwd_stash.argtypes = [P, P, P, P, I, I, P]
         lib.imlp_chain_fwd_stash.restype = I
-        lib.imlp_chain_bwd_stash.argtypes = [P, P, P, P, P, P, I, P, P]
+        lib.imlp_chain_bwd_stash.argtypes = [P, P, P, P, P, P, I, I, P, P]
         lib.imlp_chain_bwd_stash.restype = I
         lib._deflicker_typed = True
     return lib
@@ -229,17 +278,22 @@ def _library():
 def _desc(xe: torch.Tensor, weights: Sequence[torch.Tensor],
           biases: Sequence[torch.Tensor],
           skip_layers: Sequence[int]) -> _ChainDesc:
+    """The kernels' description of a (B, E) or (V, B, E) call: every layer's
+    weight (in, out) / bias (out,) carries the same video axis as x."""
     if not xe.is_cuda:
         raise ValueError("the CUDA chain kernel needs CUDA tensors")
-    if xe.dtype != torch.float32 or xe.dim() != 2 or not xe.is_contiguous():
-        raise ValueError("x must be a contiguous (B, E) float32 tensor")
+    if xe.dtype != torch.float32 or xe.dim() not in (2, 3) \
+            or not xe.is_contiguous():
+        raise ValueError("x must be a contiguous (B, E) or (V, B, E) float32 "
+                         "tensor")
+    lead = tuple(xe.shape[:-2])
     n = len(weights)
     if not 1 <= n <= MAXL or len(biases) != n:
         raise ValueError(f"need 1..{MAXL} layers with one bias each")
-    E = xe.shape[1]
+    E = xe.shape[-1]
     if E > MAX_WIDTH:
         raise ValueError(f"input width {E} > {MAX_WIDTH}")
-    _check_layers(E, weights, skip_layers)
+    _check_layers(E, weights, skip_layers, lead)
     d = _ChainDesc()
     d.n_layers, d.E = n, E
     for i, (w, b) in enumerate(zip(weights, biases)):
@@ -247,19 +301,26 @@ def _desc(xe: torch.Tensor, weights: Sequence[torch.Tensor],
                 or w.device != xe.device:
             raise ValueError(f"layer {i}: weight must be contiguous bf16 on "
                              f"{xe.device}")
+        want = lead + (w.shape[-1],)
         if b.dtype != torch.float32 or not b.is_contiguous() \
-                or b.shape != (w.shape[1],) or b.device != xe.device:
+                or tuple(b.shape) != want or b.device != xe.device:
             raise ValueError(f"layer {i}: bias must be contiguous f32 "
-                             f"({w.shape[1]},) on {xe.device}")
-        if w.shape[1] > MAX_WIDTH:
-            raise ValueError(f"layer {i}: width {w.shape[1]} > {MAX_WIDTH}")
+                             f"{want} on {xe.device}")
+        if w.shape[-1] > MAX_WIDTH:
+            raise ValueError(f"layer {i}: width {w.shape[-1]} > {MAX_WIDTH}")
         if i == 0 and 0 in skip_layers:
             raise ValueError("layer 0 cannot be a skip layer")
-        d.in_dim[i], d.out_dim[i] = w.shape
+        d.in_dim[i], d.out_dim[i] = w.shape[-2:]
         d.skip[i] = int(i > 0 and i in skip_layers)
         d.W[i] = w.data_ptr()
         d.b[i] = b.data_ptr()
     return d
+
+
+def _videos(xe: torch.Tensor) -> Tuple[tuple, int]:
+    """(leading shape, V): ((), 1) for a 2-D call, ((V,), V) with a video
+    axis."""
+    return (tuple(xe.shape[:-2]), xe.shape[0] if xe.dim() == 3 else 1)
 
 
 def _stream(device) -> int:
@@ -279,7 +340,8 @@ def stash_views(stash: torch.Tensor, weights: Sequence[torch.Tensor],
                 B: int) -> List[torch.Tensor]:
     """The (B, width) view of each layer 1..n-1 in the flat bf16 stash a
     stash forward wrote: B rows of r16(width) elements per layer, back to
-    back, the padding columns zero."""
+    back, the padding columns zero.  (A call with a video axis returns a
+    (V, n) stash; row v is video v's flat stash.)"""
     views, off = [], 0
     for w in weights[:-1]:
         width, wp = w.shape[1], _r16(w.shape[1])
@@ -290,26 +352,28 @@ def stash_views(stash: torch.Tensor, weights: Sequence[torch.Tensor],
 
 def _launch_fwd(xe, weights, biases, skip_layers, with_stash: bool):
     d = _desc(xe, weights, biases, skip_layers)
-    B = xe.shape[0]
-    out = torch.empty((B, weights[-1].shape[1]), dtype=torch.float32,
+    lead, V = _videos(xe)
+    B = xe.shape[-2]
+    out = torch.empty(lead + (B, weights[-1].shape[-1]), dtype=torch.float32,
                       device=xe.device)
-    n_stash = B * sum(_r16(w.shape[1]) for w in weights[:-1])
-    stash = (torch.empty(n_stash, dtype=torch.bfloat16, device=xe.device)
-             if with_stash else None)
-    if B == 0:
+    n_stash = B * sum(_r16(w.shape[-1]) for w in weights[:-1])
+    stash = (torch.empty(lead + (n_stash,), dtype=torch.bfloat16,
+                         device=xe.device) if with_stash else None)
+    if B == 0 or V == 0:
         return out, stash
     lib = _library()
+    suffix = "_v" if lead else ""
     if with_stash:
         err = lib.imlp_chain_fwd_stash(ctypes.byref(d), xe.data_ptr(),
-                                       out.data_ptr(), stash.data_ptr(), B,
+                                       out.data_ptr(), stash.data_ptr(), B, V,
                                        _stream(xe.device))
         _raise_on(err, "imlp_chain_fwd_stash")
-        launches["fwd_stash"] += 1
+        launches["fwd_stash" + suffix] += 1
     else:
         err = lib.imlp_chain_fwd(ctypes.byref(d), xe.data_ptr(),
-                                 out.data_ptr(), B, _stream(xe.device))
+                                 out.data_ptr(), B, V, _stream(xe.device))
         _raise_on(err, "imlp_chain_fwd")
-        launches["fwd"] += 1
+        launches["fwd" + suffix] += 1
     return out, stash
 
 
@@ -317,7 +381,9 @@ def imlp_chain_fwd_cuda(xe: torch.Tensor, weights: Sequence[torch.Tensor],
                         biases: Sequence[torch.Tensor],
                         skip_layers: Sequence[int]) -> torch.Tensor:
     """Forward kernel launch: xe (B, E) f32, bf16 (in, out) weights, f32
-    biases, all contiguous on one CUDA device -> (B, out) f32."""
+    biases, all contiguous on one CUDA device -> (B, out) f32.  With a video
+    axis (xe (V, B, E), weights (V, in, out), biases (V, out)) one launch
+    runs all V chains -> (V, B, out)."""
     return _launch_fwd(xe, weights, biases, skip_layers, False)[0]
 
 
@@ -335,56 +401,58 @@ def imlp_chain_fwd_stash_cuda(xe: torch.Tensor,
 def _launch_bwd(xe, weights, biases, skip_layers, g, need_dx,
                 stash: Optional[torch.Tensor]):
     d = _desc(xe, weights, biases, skip_layers)
-    B = xe.shape[0]
-    O = weights[-1].shape[1]
-    if g.dtype != torch.float32 or g.shape != (B, O) or not g.is_contiguous() \
-            or g.device != xe.device:
-        raise ValueError(f"g must be a contiguous ({B}, {O}) float32 tensor "
-                         f"on {xe.device}")
+    lead, V = _videos(xe)
+    B = xe.shape[-2]
+    O = weights[-1].shape[-1]
+    if g.dtype != torch.float32 or tuple(g.shape) != lead + (B, O) \
+            or not g.is_contiguous() or g.device != xe.device:
+        raise ValueError(f"g must be a contiguous {lead + (B, O)} float32 "
+                         f"tensor on {xe.device}")
     if stash is not None:
-        n_stash = B * sum(_r16(w.shape[1]) for w in weights[:-1])
-        if stash.dtype != torch.bfloat16 or stash.shape != (n_stash,) \
+        n_stash = lead + (B * sum(_r16(w.shape[-1]) for w in weights[:-1]),)
+        if stash.dtype != torch.bfloat16 or tuple(stash.shape) != n_stash \
                 or not stash.is_contiguous() or stash.device != xe.device:
-            raise ValueError(f"stash must be the flat ({n_stash},) bfloat16 "
+            raise ValueError(f"stash must be the flat {n_stash} bfloat16 "
                              f"buffer of the stash forward on {xe.device}")
-    shapes = [tuple(w.shape) for w in weights]
+    shapes = [tuple(w.shape[-2:]) for w in weights]
     n_w = sum(a * b for a, b in shapes)
-    grads = torch.empty(n_w + sum(b for _, b in shapes), dtype=torch.float32,
-                        device=xe.device)
-    dx = (torch.empty((B, xe.shape[1]), dtype=torch.float32, device=xe.device)
-          if need_dx else None)
-    if B == 0:
+    grads = torch.empty(lead + (n_w + sum(b for _, b in shapes),),
+                        dtype=torch.float32, device=xe.device)
+    dx = (torch.empty(lead + (B, xe.shape[-1]), dtype=torch.float32,
+                      device=xe.device) if need_dx else None)
+    if B == 0 or V == 0:
         grads.zero_()
         if dx is not None:
             dx.zero_()
     else:
         lib = _library()
         dx_ptr = dx.data_ptr() if dx is not None else None
+        suffix = "_v" if lead else ""
         if stash is None:
             scratch = torch.empty(
-                lib.imlp_chain_bwd_scratch_bytes(ctypes.byref(d), B),
+                V * lib.imlp_chain_bwd_scratch_bytes(ctypes.byref(d), B),
                 dtype=torch.uint8, device=xe.device)
             err = lib.imlp_chain_bwd(
                 ctypes.byref(d), xe.data_ptr(), g.data_ptr(), dx_ptr,
-                grads.data_ptr(), B, scratch.data_ptr(), _stream(xe.device))
+                grads.data_ptr(), B, V, scratch.data_ptr(), _stream(xe.device))
             _raise_on(err, "imlp_chain_bwd")
-            launches["bwd"] += 1
+            launches["bwd" + suffix] += 1
         else:
             scratch = torch.empty(
-                lib.imlp_chain_bwd_stash_scratch_bytes(ctypes.byref(d), B),
+                V * lib.imlp_chain_bwd_stash_scratch_bytes(ctypes.byref(d), B),
                 dtype=torch.uint8, device=xe.device)
             err = lib.imlp_chain_bwd_stash(
                 ctypes.byref(d), xe.data_ptr(), g.data_ptr(),
-                stash.data_ptr(), dx_ptr, grads.data_ptr(), B,
+                stash.data_ptr(), dx_ptr, grads.data_ptr(), B, V,
                 scratch.data_ptr(), _stream(xe.device))
             _raise_on(err, "imlp_chain_bwd_stash")
-            launches["bwd_stash"] += 1
+            launches["bwd_stash" + suffix] += 1
     dWs, dbs, off = [], [], 0
     for a, b in shapes:
-        dWs.append(grads[off:off + a * b].view(a, b))
+        dWs.append(grads.narrow(-1, off, a * b).view(lead + (a, b)))
         off += a * b
     for _, b in shapes:
-        dbs.append(grads[off:off + b])
+        dbs.append(grads.narrow(-1, off, b))
         off += b
     return dx, dWs, dbs
 
@@ -396,7 +464,8 @@ def imlp_chain_bwd_cuda(xe: torch.Tensor, weights: Sequence[torch.Tensor],
                         ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor],
                                    List[torch.Tensor]]:
     """Backward kernel launch (remat): same operands as the forward plus the
-    output gradient g (B, out) f32 -> (dx or None, [dW_i], [db_i]), f32."""
+    output gradient g (B, out) f32 -> (dx or None, [dW_i], [db_i]), f32.
+    With a video axis, g and every result carry it (one launch)."""
     return _launch_bwd(xe, weights, biases, skip_layers, g, need_dx, None)
 
 
@@ -488,6 +557,8 @@ def fused_imlp_linear_chain(params, xe: torch.Tensor,
                             stash_bwd: bool = False) -> torch.Tensor:
     """Differentiable fused chain on PRE-ENCODED input xe (B, E): returns the
     pre-tanh output (B, out).  params: list of {"w": (in, out), "b": (out,)}.
+    With a video axis — xe (V, B, E), params {"w": (V, in, out), "b": (V,
+    out)} — V independent chains run in one launch each way -> (V, B, out).
     A ragged B needs no padding: the kernel masks the edge tile.
 
     stash_bwd=False: the backward recomputes the forward per tile (no

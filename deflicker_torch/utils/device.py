@@ -24,3 +24,10 @@ def set_fp32_matmul_precision() -> None:
     HIGHEST precision there."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on `device`, so a stage's wall time covers
+    it; nothing to wait for off CUDA."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

@@ -43,6 +43,10 @@ CASES = {
 }
 
 
+# the counters of calls with a video axis, all zero in a 2-D run
+NO_VIDEO_AXIS = {"fwd_v": 0, "bwd_v": 0, "fwd_stash_v": 0, "bwd_stash_v": 0}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -163,7 +167,7 @@ def test_stash_autograd_on_cuda(cuda_device):
         (y * g).sum().backward()
         want = ({"fwd": 0, "bwd": 0, "fwd_stash": 1, "bwd_stash": 1} if stash
                 else {"fwd": 1, "bwd": 1, "fwd_stash": 0, "bwd_stash": 0})
-        assert K.launches == want
+        assert K.launches == {**want, **NO_VIDEO_AXIS}
         grads.append([y.detach(), xg.grad] + [p[k].grad.clone() for p in params
                                               for k in ("w", "b")])
     for a, b in zip(*grads):
@@ -201,7 +205,8 @@ def test_autograd_on_cuda_matches_cpu_twin(cuda_device):
     K.reset_launches()
     xg = x.clone().requires_grad_()
     (timlp.imlp_apply_fused(params, xg, spec) * g).sum().backward()
-    assert K.launches == {"fwd": 1, "bwd": 1, "fwd_stash": 0, "bwd_stash": 0}
+    assert K.launches == {"fwd": 1, "bwd": 1, "fwd_stash": 0, "bwd_stash": 0,
+                          **NO_VIDEO_AXIS}
     cpu = [{k: v.detach().cpu().requires_grad_() for k, v in p.items()}
            for p in params]
     xc = x.cpu().requires_grad_()
@@ -260,7 +265,7 @@ def test_corr_kernel_matches_plain(name, cuda_device):
     C.reset_launches()
     got = C.corr_lookup_cuda(f1, pyr, coords)
     torch.cuda.synchronize()
-    assert C.launches == {"lookup": 1}
+    assert C.launches == {"lookup": 1, "lookup_shared": 0, "lookup_resident": 0}
     want = C.corr_lookup_plain(f1, pyr, coords)
     assert got.shape == want.shape and torch.isfinite(got).all()
     assert _rel(got, want) < 1e-4
@@ -313,5 +318,195 @@ def test_raft_flow_kernel_mode_matches_online_on_card(cuda_device):
         C.reset_launches()
         _, up_k = traft.raft_flow(model, im1, im2, iters=3, corr_mode=mode)
         torch.cuda.synchronize()
-        assert C.launches == {"lookup": 3}
+        assert C.launches == {"lookup": 3, "lookup_shared": 0,
+                              "lookup_resident": 0}
         assert float((up_k - up_o).abs().max()) < 0.05
+
+
+# ---------------------------------------------------------------------------
+# the shared and resident correlation bodies
+# ---------------------------------------------------------------------------
+
+def _corr_operands(B, H, W, D, spread, device, seed=0):
+    rng = np.random.default_rng(seed)
+    f1 = torch.from_numpy(rng.normal(size=(B, H, W, D)).astype(np.float32))
+    f2 = torch.from_numpy(rng.normal(size=(B, H, W, D)).astype(np.float32))
+    ys, xs = np.meshgrid(np.arange(H, dtype=np.float32),
+                         np.arange(W, dtype=np.float32), indexing="ij")
+    coords = np.stack([xs, ys], -1)[None].repeat(B, 0) + rng.uniform(
+        -spread, spread, (B, H, W, 2)).astype(np.float32)
+    pyr = [lvl.to(torch.bfloat16).contiguous().to(device)
+           for lvl in traft.build_fmap_pyramid(f2)]
+    return f1.to(device), pyr, torch.from_numpy(coords).to(device)
+
+
+@pytest.mark.parametrize("spread", [0.5, 3.0, 40.0])
+@pytest.mark.parametrize("shape", [(2, 54, 96, 256), (2, 24, 40, 128),
+                                   (2, 13, 27, 64), (3, 16, 24, 32),
+                                   (1, 7, 9, 32)])
+@pytest.mark.parametrize("body", ["shared", "resident"])
+def test_corr_bodies_match_plain_and_band(body, shape, spread, cuda_device,
+                                          monkeypatch):
+    """The shared and resident bodies compute the band body's function from
+    other memory: the same bf16 values times the same f32 registers in the
+    same order, so bit-equal to the band kernel, and within the band
+    kernel's bounds of the plain twin (relative Frobenius 1e-4, max abs
+    1e-3 of the largest value)."""
+    monkeypatch.delenv("DEFLICKER_CORR_RESIDENT_MAX_MB", raising=False)
+    f1, pyr, coords = _corr_operands(*shape, spread, cuda_device)
+    band = C.corr_lookup_cuda(f1, pyr, coords)
+    C.reset_launches()
+    staged = torch.zeros(len(pyr), dtype=torch.int32, device=cuda_device)
+    got = C.corr_lookup_cuda(f1, pyr, coords, body=body,
+                             staged=staged if body == "shared" else None)
+    torch.cuda.synchronize()
+    key = {"shared": "lookup_shared", "resident": "lookup_resident"}[body]
+    assert C.launches == {"lookup": 0, "lookup_shared": 0,
+                          "lookup_resident": 0, key: 1}
+    assert torch.equal(got, band)
+    want = C.corr_lookup_plain(f1, pyr, coords)
+    assert _rel(got, want) < 1e-4
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+    if body == "shared":
+        blocks = -(-shape[0] * shape[1] * shape[2] // 8)
+        assert int(staged.max()) <= blocks
+        if spread == 0.5 and shape[2] % 8 == 0:
+            # 8 pixels of one row, flow within half a pixel: every window
+            # cluster fits the staging envelope at every level
+            assert staged.tolist() == [blocks] * len(pyr)
+
+
+def test_corr_resident_levels_and_gate(cuda_device, monkeypatch):
+    """The resident body keeps the coarse levels that fit a block's shared
+    memory; with DEFLICKER_CORR_RESIDENT_MAX_MB below a level's bytes that
+    level takes the band loads inside the same launch, and the output is
+    unchanged."""
+    f1, pyr, coords = _corr_operands(2, 54, 96, 256, 3.0, cuda_device)
+    shapes = [tuple(p.shape[1:3]) for p in pyr]
+    cap = C.resident_capacity()
+    assert 200_000 < cap <= 232_448
+    monkeypatch.delenv("DEFLICKER_CORR_RESIDENT_MAX_MB", raising=False)
+    assert C.resident_levels(shapes, 256, cap) == (2, 3)
+    monkeypatch.setenv("DEFLICKER_CORR_RESIDENT_MAX_MB", "0.1")  # < 160 KB
+    assert C.resident_levels(shapes, 256, cap, C.resident_gate_bytes()) == (3,)
+    band = C.corr_lookup_cuda(f1, pyr, coords)
+    got = C.corr_lookup_cuda(f1, pyr, coords, body="resident")
+    torch.cuda.synchronize()
+    assert torch.equal(got, band)
+
+
+def test_corr_resident_raises_when_staging_cannot_be_set_up(cuda_device,
+                                                            monkeypatch):
+    """A resident set larger than a block's shared memory is refused by the
+    launch and raised by the wrapper: no quiet fall-back to another body."""
+    f1, pyr, coords = _corr_operands(1, 54, 96, 256, 3.0, cuda_device)
+    monkeypatch.setattr(C, "resident_levels",
+                        lambda shapes, D, cap, gate=None: tuple(range(len(shapes))))
+    C.reset_launches()
+    with pytest.raises(RuntimeError, match="resident"):
+        C.corr_lookup_cuda(f1, pyr, coords, body="resident")
+    assert C.launches["lookup_resident"] == 0
+
+
+def test_raft_flow_runs_the_selected_body(cuda_device, monkeypatch):
+    """raft_flow reads the switches once per solve and launches the chosen
+    body every GRU iteration; the flow equals the band body's bit for bit."""
+    model = traft.raft_init(torch.Generator().manual_seed(0), cuda_device)
+    rng = np.random.default_rng(1)
+    im1, im2 = (torch.from_numpy(rng.uniform(0, 255, (2, 64, 96, 3))
+                                 .astype(np.float32)).to(cuda_device)
+                for _ in range(2))
+    monkeypatch.delenv("DEFLICKER_CORR_SHARED", raising=False)
+    monkeypatch.delenv("DEFLICKER_CORR_RESIDENT", raising=False)
+    _, up_band = traft.raft_flow(model, im1, im2, iters=3, corr_mode="kernel")
+    for env, key in (("DEFLICKER_CORR_SHARED", "lookup_shared"),
+                     ("DEFLICKER_CORR_RESIDENT", "lookup_resident")):
+        monkeypatch.setenv(env, "1")
+        C.reset_launches()
+        _, up = traft.raft_flow(model, im1, im2, iters=3, corr_mode="kernel")
+        torch.cuda.synchronize()
+        assert C.launches[key] == 3 and C.launches["lookup"] == 0
+        assert torch.equal(up, up_band)
+        monkeypatch.delenv(env)
+
+
+# ---------------------------------------------------------------------------
+# the chain kernels with a video axis
+# ---------------------------------------------------------------------------
+
+def _video_operands(name, V, device):
+    """V networks of one case, stacked on a leading axis."""
+    kw, B = CASES[name]
+    spec = timlp.IMLPSpec(**kw)
+    gen = torch.Generator().manual_seed(V)
+    params = timlp.imlp_init(spec, gen, device, n_videos=V)
+    x = (torch.rand((V, B, spec.input_dim), generator=gen) * 2 - 1).to(device)
+    g = torch.randn((V, B, spec.output_dim), generator=gen).to(device)
+    xe = timlp.positional_encoding(x, spec.positional_dim) if spec.use_positional else x
+    ws = [p["w"].detach() for p in params]
+    bs = [p["b"].detach().contiguous() for p in params]
+    wb = [w.to(torch.bfloat16).contiguous() for w in ws]
+    return xe.contiguous(), ws, wb, bs, g.contiguous(), spec.skip_layers
+
+
+@pytest.mark.parametrize("V", [1, 3])
+@pytest.mark.parametrize("name", ["mapping-64", "atlas-256", "odd-widths",
+                                  "alpha-256", "two-layers"])
+def test_video_axis_chain_matches_unbatched_and_plain(name, V, cuda_device):
+    """One launch over V videos gives, for each video, the one-video
+    kernels' results bit for bit (the same device code at another offset),
+    both pairs; and the plain twins' within the chain bounds (1e-2 forward,
+    2e-2 backward).  Each wrapper call counts once under its "_v" key."""
+    xe, ws, wb, bs, g, sk = _video_operands(name, V, cuda_device)
+    K.reset_launches()
+    y = K.imlp_chain_fwd_cuda(xe, wb, bs, sk)
+    ys, stash = K.imlp_chain_fwd_stash_cuda(xe, wb, bs, sk)
+    grads = {need: K.imlp_chain_bwd_cuda(xe, wb, bs, sk, g, need)
+             for need in (True, False)}
+    sgrads = K.imlp_chain_bwd_stash_cuda(xe, wb, bs, sk, stash, g, True)
+    torch.cuda.synchronize()
+    assert K.launches == {"fwd": 0, "bwd": 0, "fwd_stash": 0, "bwd_stash": 0,
+                          "fwd_v": 1, "bwd_v": 2, "fwd_stash_v": 1,
+                          "bwd_stash_v": 1}
+    assert y.shape == (V, xe.shape[1], ws[-1].shape[-1]) and torch.equal(y, ys)
+    for v in range(V):
+        wv, bv = [w[v] for w in wb], [b[v] for b in bs]
+        assert torch.equal(y[v], K.imlp_chain_fwd_cuda(xe[v], wv, bv, sk))
+        y1, st1 = K.imlp_chain_fwd_stash_cuda(xe[v], wv, bv, sk)
+        assert torch.equal(stash[v], st1)
+        for need, (dx, dW, db) in grads.items():
+            dx1, dW1, db1 = K.imlp_chain_bwd_cuda(xe[v], wv, bv, sk, g[v], need)
+            assert (dx is None) == (not need)
+            if need:
+                assert torch.equal(dx[v], dx1)
+            for a, b in zip(dW + db, dW1 + db1):
+                assert torch.equal(a[v], b)
+        for a, b in zip([sgrads[0]] + sgrads[1] + sgrads[2],
+                        [grads[True][0]] + grads[True][1] + grads[True][2]):
+            assert torch.equal(a, b)
+    assert _rel(y, K.imlp_chain_fwd_plain(xe, ws, bs, sk)) < 1e-2
+    dx_p, dW_p, db_p = K.imlp_chain_bwd_plain(xe, ws, bs, sk, g, True)
+    dx, dW, db = grads[True]
+    for a, b in zip([dx] + dW + db, [dx_p] + dW_p + db_p):
+        assert _rel(a, b) < 2e-2
+
+
+def test_video_axis_autograd_on_cuda(cuda_device):
+    """imlp_apply_fused on stacked params: one launch each way for all V
+    networks, gradients per video equal to one-video autograd's."""
+    kw, B = CASES["atlas-64"]
+    spec = timlp.IMLPSpec(**kw)
+    V = 3
+    params = timlp.imlp_init(spec, torch.Generator().manual_seed(5), cuda_device,
+                             n_videos=V)
+    x = torch.rand((V, B, spec.input_dim), device=cuda_device)
+    K.reset_launches()
+    (timlp.imlp_apply_fused(params, x, spec) ** 2).sum().backward()
+    assert K.launches["fwd_v"] == 1 and K.launches["bwd_v"] == 1
+    for v in range(V):
+        one = [{k: p[k].detach()[v].clone().requires_grad_() for k in ("w", "b")}
+               for p in params]
+        (timlp.imlp_apply_fused(one, x[v], spec) ** 2).sum().backward()
+        for p, q in zip(params, one):
+            assert torch.equal(p["w"].grad[v], q["w"].grad)
+            assert torch.equal(p["b"].grad[v], q["b"].grad)

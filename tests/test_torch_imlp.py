@@ -188,7 +188,9 @@ def test_cpu_tensor_takes_plain_twin():
     _, tspec, _, host, x, tgt = _setup("mapping", 40, 6)
     K.reset_launches()
     _torch_chain_grads(tspec, host, x, tgt, torch.bfloat16)
-    assert K.launches == {"fwd": 0, "bwd": 0, "fwd_stash": 0, "bwd_stash": 0}
+    assert K.launches == {"fwd": 0, "bwd": 0, "fwd_stash": 0, "bwd_stash": 0,
+                          "fwd_v": 0, "bwd_v": 0, "fwd_stash_v": 0,
+                          "bwd_stash_v": 0}
     ws = [torch.tensor(l["w"]).to(torch.bfloat16) for l in host]
     bs = [torch.tensor(l["b"]) for l in host]
     with pytest.raises(ValueError):

@@ -58,7 +58,10 @@ def test_importing_the_port_loads_no_jax():
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     """Called without a device on a machine with no CUDA, entry points raise
     instead of running on the CPU."""
+    from types import SimpleNamespace
+
     from deflicker_torch.atlas import render_from_texture
+    from deflicker_torch.cli import batch
     from deflicker_torch.cli import convert_weights
     from deflicker_torch.cli import main as cli_main
     from deflicker_torch.cli import preprocess_flow
@@ -99,6 +102,14 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert_weights.main(["--kind", "raft", "--src", str(ckpt),
                               "--dst", str(tmp_path / "out.ckpt")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch.main(["--videos", str(tmp_path / "a.mp4"), "--parallel_fit"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch.main(["--videos", str(tmp_path / "a.mp4")])      # sequential
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch.run_batch_parallel([], SimpleNamespace(class_name=None,
+                                                     results_root=str(tmp_path)),
+                                 None)
     assert resolve_device("cpu").type == "cpu"
 
 

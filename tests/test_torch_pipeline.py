@@ -115,18 +115,34 @@ def test_pipeline_takes_raft_when_its_checkpoint_exists(tiny_video_dir):
 
 
 def test_refuses_what_the_slice_does_not_port(tiny_video_dir):
+    """A long video now takes the chunked path (tests/test_torch_multifit.py);
+    what the port still refuses: spreading a batch over hosts (--dcn), and
+    resuming the chunked fit from a checkpoint the JAX package wrote (its
+    optimizer state pickles optax classes)."""
+    import pickle
+
+    from deflicker_torch.cli import batch
     from deflicker_torch.cli.pipeline import run_stage1
     from deflicker_torch.config import AtlasConfig, PipelineConfig
 
     tmp, frames = tiny_video_dir
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        batch.main(["--videos", "a.mp4", "--dcn"], device="cpu")
+
+    import optax
+
+    results = tmp / "r"
+    ckpt = results / "vid" / "stage_1" / "checkpoint"
+    ckpt.parent.mkdir(parents=True)
+    state = optax.adam(1e-3).init({"w": np.zeros((2, 3), np.float32)})
+    ckpt.write_bytes(pickle.dumps({"opt_state_v": state, "iteration": 3}))
     cfg = PipelineConfig(video_frame_folder=str(frames), root=str(frames.parent),
-                         results_root=str(tmp / "r"), down=2,
+                         results_root=str(results), down=2,
                          ckpt_raft=str(tmp / "missing.pth"))
-    long_cfg = dataclasses.replace(AtlasConfig(), maximum_number_of_frames=3)
-    with pytest.raises(NotImplementedError, match="not truncated"):
+    long_cfg = dataclasses.replace(AtlasConfig(), maximum_number_of_frames=3,
+                                   load_checkpoint=True)
+    with pytest.raises(pickle.UnpicklingError, match="optax"):
         run_stage1(frames, cfg, long_cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="not truncated"):
-        run_stage1(frames, cfg, long_cfg, "cpu", dual=True)
 
 
 def test_run_stage1_dual_fits_four_networks(tiny_video_dir):
