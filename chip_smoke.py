@@ -5,7 +5,8 @@
 Phases (any failure exits non-zero before the result line):
   1. device and build: prints `nvidia-smi` name and power limit, builds the
      CUDA kernels from `deflicker_torch/csrc` (the IMLP chain and the
-     correlation lookup, one nvcc each, started together) and times it;
+     correlation lookup, one nvcc each, started together) and times it,
+     with every kernel's registers, spills and shared memory;
   2. kernel vs plain: every kernel of the main paths at their shapes — the
      single fit's mapping1 query (90,000 rows x 6 layers of 256) and atlas
      query (30,000 rows x 8 layers of 256 with skips) for the remat pair of
@@ -16,7 +17,8 @@ Phases (any failure exits non-zero before the result line):
      D = 256, four levels, flows of +-3 and +-40 px, and a ragged 7 x 9,
      D = 32 case) for the correlation kernel — held against its plain
      PyTorch twin, then timed beside its bound, the plain twin and, where
-     one PyTorch call computes the same function, that call;
+     one PyTorch call computes the same function, that call; each backward
+     also piece by piece (recompute, reverse pass, dW GEMM, reduction);
   3. the pipeline with Farneback flow: `deflicker_torch.cli.pipeline
      .run_pipeline` on a procedural flickering clip of 80 frames at 432x768,
      at the default AtlasConfig widths and batch with the shipped stage-2
@@ -251,6 +253,35 @@ def library_chain(case, kind: str):
     return bwd
 
 
+def piece_times(K, x, wb, bs, sk, g, need_dx, stash=None) -> dict:
+    """CUDA-event times of the launches of one backward call, each run alone
+    on a scratch that a whole call filled: the recompute (remat only), the
+    reverse pass, the dW GEMM and the reduction."""
+    launch = K.bwd_piece_launcher(x, wb, bs, sk, g, need_dx, stash)
+    names = ("reverse", "dw", "reduce") if stash is not None else \
+        ("recompute", "reverse", "dw", "reduce")
+    return {name: cuda_ms(lambda: launch(name)) for name in names}
+
+
+def print_build(logs: dict) -> None:
+    """Registers and spills of every kernel from ptxas, then the chain
+    kernels' registers, local bytes and shared memory a block as the
+    runtime reports them."""
+    from deflicker_torch.ops.cuda import imlp_kernel
+
+    for name, log in logs.items():
+        entry = "?"
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+                entry = entry[entry.find("_cu_") + 4:] if "_cu_" in entry else entry
+            elif ("Used" in line and "registers" in line) or "spill" in line:
+                print(f"[build] {name} {entry[:70]}: {line.strip()}")
+    for kname, (regs, local, smem) in imlp_kernel.kernel_attrs().items():
+        print(f"[build] imlp_chain {kname}: {regs} registers, {local} local bytes "
+              f"a thread, {smem} shared bytes a block", flush=True)
+
+
 def phase_chain_kernels(device) -> dict:
     import torch
 
@@ -300,6 +331,8 @@ def phase_chain_kernels(device) -> dict:
                 bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 gflop=flops / 1e9))
+            if kind == "bwd":
+                rows[kind][-1]["pieces_ms"] = piece_times(K, x, wb, bs, sk, g, need_dx)
             print(f"[kernel] {kind} {case['name']}: {rows[kind][-1]}", flush=True)
     return rows
 
@@ -476,6 +509,9 @@ def phase_stash_kernels(device) -> dict:
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 gflop=flops / 1e9, mbytes=nbytes / 1e6,
                 stash_mbytes=stash.numel() * 2 / 1e6))
+            if kind == "bwd":
+                rows[key][-1]["pieces_ms"] = piece_times(K, x, wb, bs, sk, g, need_dx,
+                                                         stash)
             print(f"[kernel] {key} {name}: {rows[key][-1]}", flush=True)
     return rows
 
@@ -1363,10 +1399,7 @@ def main() -> int:
     t_start = time.time()
     logs = build.build(["imlp_chain", "corr_lookup"], verbose=True)
     print(f"[build] nvcc {time.time() - t0:.1f} s", flush=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+    print_build(logs)
 
     rows = phase_chain_kernels(device)
     stash_rows = phase_stash_kernels(device)

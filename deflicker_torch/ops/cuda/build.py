@@ -2,7 +2,9 @@
 
 Each `csrc/<name>.cu` compiles, at first use, into
 `<repo>/build/kernels/lib<name>-<hash>.so` for `sm_90a`; the hash of the
-source names the file, so an edited source never loads a stale library.
+source and of every file under `csrc/` that it includes (`#include "..."`,
+followed through included files) names the file, so an edited source or
+header never loads a stale library.
 Nothing is built when a module is imported.
 """
 
@@ -11,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -39,10 +42,28 @@ def nvcc_path() -> str:
                        "built from source at first use")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list:
+    """`csrc/<name>.cu` and the files under `csrc/` it includes, directly or
+    through another included file, in the order first reached."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0).resolve()
+        if path in seen or not path.is_file():
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            todo.append(path.parent / inc.decode())
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _compile_cmd(name: str, out: Path, verbose: bool) -> list:

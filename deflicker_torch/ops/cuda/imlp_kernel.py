@@ -4,7 +4,8 @@ The CUDA source is `deflicker_torch/csrc/imlp_chain.cu` (its header says
 which TPU kernels it replaces, its bound and its design).  This module:
 
   * `imlp_chain_fwd_cuda` / `imlp_chain_bwd_cuda` (the remat pair: the
-    backward recomputes the forward) and `imlp_chain_fwd_stash_cuda` /
+    backward recomputes the activations into its scratch, then runs the
+    stash backward's launches on them) and `imlp_chain_fwd_stash_cuda` /
     `imlp_chain_bwd_stash_cuda` (the stash pair: the forward also writes the
     bf16 post-relu input of layers 1..n-1 to one buffer that autograd keeps,
     the backward reads it) check their tensors, allocate outputs, stash and
@@ -44,9 +45,9 @@ import torch
 MAXL = 16
 MAX_WIDTH = 256
 
-# launches of each kernel wrapper (a bwd launch is the chain, dW and reduce
-# kernels of one backward call); "_v": calls with a video axis, one launch
-# for all V videos
+# launches of each kernel wrapper (a bwd launch is one backward call: the
+# recompute (remat only), reverse-pass, dW and reduce kernels); "_v": calls
+# with a video axis, one launch for all V videos
 launches = {"fwd": 0, "bwd": 0, "fwd_stash": 0, "bwd_stash": 0,
             "fwd_v": 0, "bwd_v": 0, "fwd_stash_v": 0, "bwd_stash_v": 0}
 
@@ -271,6 +272,13 @@ def _library():
         lib.imlp_chain_fwd_stash.restype = I
         lib.imlp_chain_bwd_stash.argtypes = [P, P, P, P, P, P, I, I, P, P]
         lib.imlp_chain_bwd_stash.restype = I
+        lib.imlp_chain_bwd_pieces.argtypes = [P, P, P, P, P, P, I, I, P, P, I, I]
+        lib.imlp_chain_bwd_pieces.restype = I
+        lib.imlp_chain_dw_slice_rows.argtypes = [P, I]
+        lib.imlp_chain_dw_slice_rows.restype = I
+        IP = ctypes.POINTER(ctypes.c_int)
+        lib.imlp_chain_kernel_attrs.argtypes = [I, IP, IP, IP]
+        lib.imlp_chain_kernel_attrs.restype = I
         lib._deflicker_typed = True
     return lib
 
@@ -485,6 +493,62 @@ def imlp_chain_bwd_stash_cuda(xe: torch.Tensor,
         raise ValueError("the stash backward needs the stash of the stash "
                          "forward")
     return _launch_bwd(xe, weights, biases, skip_layers, g, need_dx, stash)
+
+
+# the launches of one backward call, as bits of `imlp_chain_bwd_pieces`
+BWD_PIECES = {"recompute": 1, "reverse": 2, "dw": 4, "reduce": 8}
+KERNELS = ("chain_fwd_kernel<false,true>", "chain_fwd_kernel<true,true>",
+           "chain_fwd_kernel<true,false>", "chain_reverse_kernel", "dw_kernel",
+           "reduce_kernel")
+
+
+def bwd_piece_launcher(xe, weights, biases, skip_layers, g, need_dx,
+                       stash: Optional[torch.Tensor] = None):
+    """For timing the pieces of a backward: runs one whole backward call
+    (remat, or stash when `stash` is given) into a scratch it keeps, and
+    returns piece(name) that launches that one kernel again on it
+    (`BWD_PIECES`; "recompute" only without a stash).  Neither counts in
+    `launches`."""
+    d = _desc(xe, weights, biases, skip_layers)
+    _, V = _videos(xe)
+    B = xe.shape[-2]
+    lib = _library()
+    query = (lib.imlp_chain_bwd_scratch_bytes if stash is None
+             else lib.imlp_chain_bwd_stash_scratch_bytes)
+    scratch = torch.empty(V * query(ctypes.byref(d), B), dtype=torch.uint8,
+                          device=xe.device)
+    shapes = [tuple(w.shape[-2:]) for w in weights]
+    grads = torch.empty(xe.shape[:-2] + (sum(a * b + b for a, b in shapes),),
+                        dtype=torch.float32, device=xe.device)
+    dx = torch.empty_like(xe) if need_dx else None
+    args = (ctypes.byref(d), xe.data_ptr(), g.data_ptr(),
+            stash.data_ptr() if stash is not None else None,
+            dx.data_ptr() if dx is not None else None, grads.data_ptr(), B, V,
+            scratch.data_ptr(), _stream(xe.device), int(stash is None))
+
+    def piece(name: str) -> None:
+        _raise_on(lib.imlp_chain_bwd_pieces(*args, BWD_PIECES[name]),
+                  f"imlp_chain_bwd_pieces({name})")
+
+    _raise_on(lib.imlp_chain_bwd_pieces(*args, sum(BWD_PIECES.values())),
+              "imlp_chain_bwd_pieces")
+    piece.keep = (d, scratch, grads, dx)   # alive as long as the launcher
+    return piece
+
+
+def kernel_attrs() -> dict:
+    """{kernel: (registers, local bytes a thread, shared bytes a launch)} of
+    the built library (`KERNELS`; the forward's shared memory at width 256)."""
+    lib = _library()
+    out = {}
+    for i, name in enumerate(KERNELS):
+        regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        _raise_on(lib.imlp_chain_kernel_attrs(i, ctypes.byref(regs),
+                                              ctypes.byref(local),
+                                              ctypes.byref(smem)),
+                  "imlp_chain_kernel_attrs")
+        out[name] = (regs.value, local.value, smem.value)
+    return out
 
 
 # ---------------------------------------------------------------------------

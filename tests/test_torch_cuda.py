@@ -510,3 +510,78 @@ def test_video_axis_autograd_on_cuda(cuda_device):
         for p, q in zip(params, one):
             assert torch.equal(p["w"].grad[v], q["w"].grad)
             assert torch.equal(p["b"].grad[v], q["b"].grad)
+
+
+# ---------------------------------------------------------------------------
+# the backward at the edges of its tiles and row slices
+# ---------------------------------------------------------------------------
+
+def _edge_batches(spec, device):
+    """1, 63, 64, 127, 128, 129 (wgmma takes 64 rows, a reverse-pass tile
+    128), then S - 1, S, S + 1 for the first S >= 3000 that is a multiple
+    of the dW GEMM's row slice at S rows (the last slice full, one row
+    short, one row over)."""
+    params = timlp.imlp_init(spec, torch.Generator().manual_seed(0), device)
+    wb = [p["w"].detach().to(torch.bfloat16).contiguous() for p in params]
+    bs = [p["b"].detach() for p in params]
+    lib = K._library()
+    E = wb[0].shape[0]
+    S = 3000
+    while True:
+        xe = torch.zeros((S, E), device=device)
+        rows = lib.imlp_chain_dw_slice_rows(
+            ctypes.byref(K._desc(xe, wb, bs, spec.skip_layers)), S)
+        if S % rows == 0 and S // rows > 1:
+            break
+        S += 1
+    return [1, 63, 64, 127, 128, 129, S - 1, S, S + 1]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_backward_at_tile_and_slice_edges(name, cuda_device):
+    """The reverse pass and the dW GEMM at batch sizes around their tiles and
+    slices, with and without dx, one video and three: stash and remat
+    gradients bit-equal, two calls bit-equal, a V = 3 call bit-equal to the
+    one-video calls, and within 2e-2 (relative Frobenius) of the plain stash
+    twin fed the kernel's own stash."""
+    kw, _ = CASES[name]
+    spec = timlp.IMLPSpec(**kw)
+    sk = spec.skip_layers
+    for B in _edge_batches(spec, cuda_device):
+        for V in (1, 3):
+            gen = torch.Generator().manual_seed(B)
+            params = timlp.imlp_init(spec, gen, cuda_device, n_videos=V if V > 1 else None)
+            lead = (V,) if V > 1 else ()
+            x = (torch.rand(lead + (B, spec.input_dim), generator=gen) * 2 - 1).to(cuda_device)
+            g = torch.randn(lead + (B, spec.output_dim), generator=gen).to(cuda_device)
+            xe = (timlp.positional_encoding(x, spec.positional_dim)
+                  if spec.use_positional else x).contiguous()
+            ws = [p["w"].detach() for p in params]
+            bs = [p["b"].detach().contiguous() for p in params]
+            wb = [w.to(torch.bfloat16).contiguous() for w in ws]
+            _, stash = K.imlp_chain_fwd_stash_cuda(xe, wb, bs, sk)
+            for need_dx in (True, False):
+                flat = lambda r: ([r[0]] if need_dx else []) + r[1] + r[2]
+                rem = flat(K.imlp_chain_bwd_cuda(xe, wb, bs, sk, g, need_dx))
+                sta = flat(K.imlp_chain_bwd_stash_cuda(xe, wb, bs, sk, stash, g, need_dx))
+                again = flat(K.imlp_chain_bwd_cuda(xe, wb, bs, sk, g, need_dx))
+                torch.cuda.synchronize()
+                where = f"B={B} V={V} dx={need_dx}"
+                assert all(torch.equal(a, b) for a, b in zip(rem, sta)), where
+                assert all(torch.equal(a, b) for a, b in zip(rem, again)), where
+                if V > 1:
+                    for v in range(V):
+                        one = flat(K.imlp_chain_bwd_cuda(
+                            xe[v], [w[v] for w in wb], [b[v] for b in bs], sk, g[v],
+                            need_dx))
+                        assert all(torch.equal(a[v], b) for a, b in zip(rem, one)), where
+                views = ([K.stash_views(stash[v], [w[v] for w in wb], B)
+                          for v in range(V)] if V > 1
+                         else K.stash_views(stash, wb, B))
+                views = ([torch.stack([vv[i] for vv in views]).float()
+                          for i in range(len(ws) - 1)] if V > 1
+                         else [vv.float() for vv in views])
+                want = flat(K.imlp_chain_bwd_stash_plain(xe, ws, bs, sk, views, g,
+                                                         need_dx))
+                for a, b in zip(rem, want):
+                    assert torch.isfinite(a).all() and _rel(a, b) < 2e-2, where
