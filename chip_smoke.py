@@ -18,7 +18,8 @@ Phases (any failure exits non-zero before the result line):
      D = 32 case) for the correlation kernel — held against its plain
      PyTorch twin, then timed beside its bound, the plain twin and, where
      one PyTorch call computes the same function, that call; each backward
-     also piece by piece (recompute, reverse pass, dW GEMM, reduction);
+     also piece by piece (recompute, reverse pass, dW GEMM, reduction; the
+     recompute at the dual fit's shapes too);
   3. the pipeline with Farneback flow: `deflicker_torch.cli.pipeline
      .run_pipeline` on a procedural flickering clip of 80 frames at 432x768,
      at the default AtlasConfig widths and batch with the shipped stage-2
@@ -63,6 +64,10 @@ Phases (any failure exits non-zero before the result line):
  12. the batch CLI's group mode (`cli.batch --parallel_fit`) on two 80-frame
      clips: RAFT flow with DEFLICKER_CORR_SHARED=1, one V = 2 fit with
      DEFLICKER_IMLP_STASH=1, stage 2 through `FilterEngine.run_multi`.
+Kernel, plain and library times are device times (`cuda_ms`: each run
+queued behind a sleep kernel, so no host work is inside the events);
+`call_ms` beside a kernel's is one call from an idle device, the wrapper's
+host work included, as earlier versions of this script timed every kernel.
 Each pipeline phase zeroes the launch counters just before it and reads
 them just after.  The second-to-last line is the kernel table as JSON, the
 last line {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
@@ -117,6 +122,7 @@ ITERS_MULTI = 100           # fit steps of the chunked and batch phases
 PRETRAIN_MULTI = 25         # pretrain sweeps there (default 100)
 CORR_SPREADS = (0.5, 3.0, 40.0)
 VIDEOS = 3                  # video axis of the batched chain phase
+SLEEP_CYCLES = 4_000_000    # cuda_ms's sleep kernel: about 2 ms at the H100's clocks
 
 
 def nvidia_smi_line() -> str:
@@ -126,8 +132,13 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Median device time of fn() over `iters` runs, by CUDA events."""
+def cuda_ms(fn, iters: int = 50, warmup: int = 5, host: bool = False) -> float:
+    """Median device time of fn() over `iters` runs, by CUDA events.  Each
+    run waits in the queue behind a sleep kernel of about 2 ms, so the host
+    has issued all of fn's launches before the first one starts: the time
+    is the device's alone.  host=True: no sleep kernel, so the time of one
+    call from an idle device, the wrapper's host work (checks, descriptors,
+    tensor maps, the launch) included, as earlier versions timed every kernel."""
     import torch
 
     for _ in range(warmup):
@@ -135,6 +146,8 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
+        if not host:
+            torch.cuda._sleep(SLEEP_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -253,13 +266,14 @@ def library_chain(case, kind: str):
     return bwd
 
 
-def piece_times(K, x, wb, bs, sk, g, need_dx, stash=None) -> dict:
+def piece_times(K, x, wb, bs, sk, g, need_dx, stash=None, names=None) -> dict:
     """CUDA-event times of the launches of one backward call, each run alone
     on a scratch that a whole call filled: the recompute (remat only), the
-    reverse pass, the dW GEMM and the reduction."""
+    reverse pass, the dW GEMM and the reduction (or only `names`)."""
     launch = K.bwd_piece_launcher(x, wb, bs, sk, g, need_dx, stash)
-    names = ("reverse", "dw", "reduce") if stash is not None else \
-        ("recompute", "reverse", "dw", "reduce")
+    if names is None:
+        names = ("reverse", "dw", "reduce") if stash is not None else \
+            ("recompute", "reverse", "dw", "reduce")
     return {name: cuda_ms(lambda: launch(name)) for name in names}
 
 
@@ -326,7 +340,7 @@ def phase_chain_kernels(device) -> dict:
             rows[kind].append(dict(
                 shape=case["name"], rows=int(x.shape[0]), max_abs_err=aerr,
                 rel_err=err,
-                ms=cuda_ms(run), plain_ms=cuda_ms(plain),
+                ms=cuda_ms(run), call_ms=cuda_ms(run, host=True), plain_ms=cuda_ms(plain),
                 library_ms=cuda_ms(library_chain(case, kind)),
                 bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -503,15 +517,19 @@ def phase_stash_kernels(device) -> dict:
             rows[key].append(dict(
                 shape=name, rows=int(B), max_abs_err=aerr, rel_err=err,
                 bit_equal_to_remat=True, with_global=case["with_global"],
-                ms=cuda_ms(run), remat_ms=cuda_ms(remat), plain_ms=cuda_ms(plain),
+                ms=cuda_ms(run), call_ms=cuda_ms(run, host=True), remat_ms=cuda_ms(remat),
+                plain_ms=cuda_ms(plain),
                 library_ms=cuda_ms(library_stash_chain(case, kind)),
                 bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 gflop=flops / 1e9, mbytes=nbytes / 1e6,
                 stash_mbytes=stash.numel() * 2 / 1e6))
             if kind == "bwd":
-                rows[key][-1]["pieces_ms"] = piece_times(K, x, wb, bs, sk, g, need_dx,
-                                                         stash)
+                # the stash backward's launches, and the remat backward's
+                # recompute (the forward template without its output layer)
+                rows[key][-1]["pieces_ms"] = {
+                    **piece_times(K, x, wb, bs, sk, g, need_dx, stash),
+                    **piece_times(K, x, wb, bs, sk, g, need_dx, names=("recompute",))}
             print(f"[kernel] {key} {name}: {rows[key][-1]}", flush=True)
     return rows
 
@@ -598,6 +616,7 @@ def phase_corr_kernel(device) -> list:
         row = dict(shape=name, B=B, pixels=H * W, D=D, max_abs_err=aerr,
                    rel_err=err, zero_share=float((want == 0).float().mean()),
                    ms=cuda_ms(lambda: C.corr_lookup_cuda(f1, stored, coords)),
+                   call_ms=cuda_ms(lambda: C.corr_lookup_cuda(f1, stored, coords), host=True),
                    plain_ms=cuda_ms(lambda: C.corr_lookup_plain(f1, stored, coords)),
                    library_ms=None,
                    bound_ms=1e3 * max(t_ops, t_bytes),
@@ -1129,6 +1148,7 @@ def phase_video_chain(device) -> dict:
             rows[key].append(dict(
                 shape=name, videos=VIDEOS, rows=int(rows_n), max_abs_err=aerr,
                 rel_err=err, bit_equal_to_one_video=True, ms=cuda_ms(run),
+                call_ms=cuda_ms(run, host=True),
                 one_video_x3_ms=cuda_ms(each), plain_ms=cuda_ms(plain, iters=5),
                 library_ms=cuda_ms(library_chain_v(case, kind)),
                 bound_ms=VIDEOS * 1e3 * max(t_ops, t_bytes),

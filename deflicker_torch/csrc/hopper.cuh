@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks of the IMLP chain's backward kernels:
-// mbarriers, TMA loads of tiled tensor maps, and wgmma with shared-memory
+// Hopper (sm_90a) building blocks of the IMLP chain's kernels: mbarriers,
+// TMA loads and stores of tiled tensor maps, and wgmma with shared-memory
 // matrix descriptors.  Layouts and encodings: PTX ISA,
 // "Asynchronous Warpgroup Level Matrix Multiply-Accumulate" (matrix
 // descriptor, register fragments) and "Tensor Memory Accelerator".
@@ -37,16 +37,23 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
 }
 
-// wait until the phase of parity `parity` has completed
+// wait until the phase of parity `parity` has completed, in one loop of
+// PTX (as CUTLASS writes it; a loop in C++ around try_wait was slower in
+// the forward).  A wait still open after 2^28
+// tries (seconds; a copy or a product takes microseconds) traps: a fault in
+// a ring's protocol fails the launch instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  }
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 n;\nmov.b32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.lt.u32 p, n, 268435456;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n}\n"
+      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
 // ---- TMA -------------------------------------------------------------------
@@ -62,6 +69,33 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// one box of shared memory, laid out as the map's swizzle lays it, into a
+// 3-D tiled tensor map (coordinates innermost first); elements outside the
+// tensor are not written.  Completion is tracked by bulk groups.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"((uint64_t)map), "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read their source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// wait until at most N of this thread's bulk groups are still in flight
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 // orders this thread's shared-memory stores before later async-proxy reads
 // (wgmma operands, TMA)
 __device__ __forceinline__ void fence_async_smem() {
@@ -71,6 +105,13 @@ __device__ __forceinline__ void fence_async_smem() {
 // barrier `id` (1..15) over `n` threads
 __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// This thread's warpgroup, read through a shuffle so that the compiler
+// knows it is the same across the warp: wgmma under a branch on it is then
+// not taken for divergent code (which ptxas serializes).
+__device__ __forceinline__ int warpgroup_index() {
+  return __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0);
 }
 
 template <int R>

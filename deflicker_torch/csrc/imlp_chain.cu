@@ -27,12 +27,45 @@
 //   g_{i-1} = (bf16(g_i)·bf16(W_i[:d])ᵀ) * (a_i > 0),  dx = bf16(g_0)·bf16(W_0)ᵀ.
 // The skip branch gets no gradient (the reference's detached skip input).
 //
-// Forward (rows 1 and 3): one block owns a 64-row tile and keeps its bf16
-// activation tile in shared memory for the whole chain; each layer's W
-// streams through 32-deep cp.async slabs; products are mma.sync m16n8k16
-// fed by ldmatrix, with bias, relu and the bf16 cast in registers.  The
-// stash forward stores the bf16 pairs its epilogue already holds (rows past
-// B never stored), so the stash is exactly (B, r16(width)) per layer.
+// Forward (rows 1 and 3, and row 2's recompute: chain_fwd_kernel<STASH,
+// OUTPUT>).  What bounds it on the H100: the products (263,424 MACs a row
+// for the 6x256 mapping, 47 GFLOP at 90,000 rows, 0.05 ms of the tensor
+// cores); the stash forward also writes B x 1,280 bf16 at that shape
+// (0.23 GB, 0.07 ms of HBM).  The first design (mma.sync fed by ldmatrix,
+// 32-deep cp.async slabs, two block barriers a slab, a 64-row tile that
+// streamed every weight from L2 again) ran at 9-10 % of that bound.  The
+// design now is the reverse pass's, turned around: a 128-row tile a block,
+// two consumer warpgroups of 64 rows and a producer warpgroup (setmaxnreg
+// 232 / 40).  Each consumer keeps its rows of the bf16 activation tile and
+// of the bf16 x tile in shared memory, 128-byte swizzled and K-major (x is
+// read 16 bytes a thread and cast once).  Producer warp 0 streams every
+// layer's W through a TMA ring of up to 8 stages of 64 contraction rows x
+// 128 output columns under full/empty mbarriers, running ahead into the
+// next layer while the consumers run an epilogue; W is stored (in, out),
+// so a slab lands MN-major (two 64 x 64 boxes).  A width TMA cannot stride
+// (the output layer's 1-3 columns) is written into the same swizzled slab
+// by that warp.  Products: wgmma m64n128k16, one 128-column half of the
+// layer after the other; a skip layer contracts two segments (the
+// activation tile, then the x tile against W's last E rows, each with its
+// own tensor map).  Half 1's products run under half 0's epilogue (bias,
+// relu, bf16 in registers); both halves then go back into the tile in
+// place, swizzled, as the next layer's A: a warpgroup reads only its own
+// rows, so no block barrier is needed.  The stash forward sends each hidden
+// layer's output from the tile to the stash by TMA store in 64 x 64 boxes
+// (the boxes in which the reverse pass reads it back as the relu mask);
+// TMA drops rows past B and columns past r16(width), so the stash is
+// exactly (B, r16(width)) per layer, its padding columns zero.  The output
+// layer stores f32 for real rows and columns only.  Each slab's products
+// open with wgmma.fence: without it ptxas serialized the forward's wgmma
+// (its C7520 note), and the warpgroup index comes through a shuffle, so
+// that ptxas knows the consumer branch to be uniform.  Shared memory
+// (bytes): activation tile 65,536, x tile 16,384 for every 64 columns of
+// r16(E), ring 16,384 a stage, barriers: 8 stages up to E = 128 (230,528
+// bytes in all), 6 at E = 256.  One block an SM.  What holds it on the
+// H100 now is the weight ring's round trip, not the tensor cores or the
+// bytes: builds without the products, and without products and epilogue,
+// kept most of its time, and halving each slab's bytes moved nothing
+// (one-off builds, not kept).
 //
 // Backward (rows 2 and 4): what bounds it on the H100.  Per row the
 // products are about 2 x the forward's (263,424 MACs a row forward for the
@@ -110,13 +143,7 @@ typedef __nv_bfloat162 bf162;
 
 namespace {
 
-constexpr int BM = 64;            // rows per block tile
-constexpr int NWARP = 8;
-constexpr int NTHREADS = NWARP * 32;
-constexpr int KS = 32;            // depth of a streamed weight slab
-constexpr int PAD = 8;            // smem row padding (bf16 elements)
-constexpr int MAXW = 256;         // widest layer a block tile can hold
-constexpr int FWD_MIN_BLOCKS = 2; // forward: 2 blocks/SM (<= 128 registers)
+constexpr int MAXW = 256;  // widest layer the kernels take
 
 }  // namespace
 
@@ -145,36 +172,6 @@ __device__ __forceinline__ const float* layer_b(const ChainDesc& d, int l, int v
   return d.b[l] + (size_t)v * d.out_dim[l];
 }
 
-struct SmemLayout {
-  int xld, ald;           // leading dims of the x tile and the activation tile
-  size_t off_xs, off_act, off_slab0, off_slab1, bytes;
-};
-
-__host__ __device__ inline SmemLayout smem_layout(const ChainDesc& d) {
-  SmemLayout L;
-  const int Ep = r16(d.E);
-  int H = 16;
-  for (int i = 0; i < d.n_layers; ++i) H = imax(H, r16(d.out_dim[i]));
-  L.xld = Ep + PAD;
-  L.ald = H + PAD;
-  const size_t slab = (size_t)KS * (H + PAD) * sizeof(bf16);  // KS x (Np + PAD)
-  size_t off = 0;
-  L.off_xs = off;    off += (size_t)BM * L.xld * sizeof(bf16); off = (off + 127) & ~size_t(127);
-  L.off_act = off;   off += (size_t)BM * L.ald * sizeof(bf16); off = (off + 127) & ~size_t(127);
-  L.off_slab0 = off; off += slab;                             off = (off + 127) & ~size_t(127);
-  L.off_slab1 = off; off += slab;
-  L.bytes = off;
-  return L;
-}
-
-// Where the bf16 post-relu input of layer i (1..n-1) lives: rows of
-// r16(out_dim[i-1]) elements starting at base + off[i].  Rows past B are
-// neither stored nor read.
-struct StashView {
-  bf16* base;
-  size_t off[MAXL];
-};
-
 // element offsets of a caller-owned stash: B rows per layer, back to back
 __host__ __device__ inline size_t stash_offsets(const ChainDesc& d, int B, size_t* off) {
   size_t o = 0;
@@ -185,236 +182,401 @@ __host__ __device__ inline size_t stash_offsets(const ChainDesc& d, int B, size_
   return o;
 }
 
-// ---------------------------------------------------------------------------
-// PTX helpers (layouts: PTX ISA, "Matrix fragments for mma.m16n8k16")
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// four 8x8 b16 matrices; lane l gives the row address of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row) · b (16x8, col); c/d: (g, 2t..2t+1) and (g + 8, ...)
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16-byte global -> shared copy; a false `valid` zero-fills the destination
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
 __device__ __forceinline__ float relu_keep_nan(float v) { return (v < 0.0f) ? 0.0f : v; }
 
-// acc[row tile][column tile j][n8 half][fragment element]
-typedef float Acc[4][2][2][4];
-
-__device__ __forceinline__ void zero_acc(Acc& acc) {
-#pragma unroll
-  for (int rt = 0; rt < 4; ++rt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[rt][j][h][q] = 0.0f;
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (hopper::smem_addr(p) & 1023u)) & 1023u);
 }
 
-// W[wrow0 + k0 : +KS, 0:N] -> slab [KS][Np + PAD] (zero outside K x N)
-__device__ __forceinline__ void load_fwd_slab(bf16* slab, const bf16* __restrict__ W, int wrow0,
-                                              int k0, int K, int N) {
-  const int Np = r16(N), sld = Np + PAD;
-  if ((N & 7) == 0) {
-    const int nv = Np >> 3;
-    for (int idx = threadIdx.x; idx < KS * nv; idx += NTHREADS) {
-      const int kk = idx / nv, c = (idx - kk * nv) << 3;
-      const int k = k0 + kk;
-      const bool ok = k < K && c < N;
-      cp_async16(slab + kk * sld + c, ok ? W + (size_t)(wrow0 + k) * N + c : W, ok);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < KS * Np; idx += NTHREADS) {
-      const int kk = idx / Np, c = idx - kk * Np;
-      const int k = k0 + kk;
-      slab[kk * sld + c] = (k < K && c < N) ? W[(size_t)(wrow0 + k) * N + c]
-                                            : __float2bfloat16(0.0f);
-    }
-  }
+__host__ __device__ __forceinline__ int kept_width(const ChainDesc& d, int i) {
+  return i == 0 ? d.E : d.out_dim[i - 1];
 }
 
-// acc += A[:, 0:K] · W[wrow0 : wrow0 + K, 0:N]; A is a BM-row bf16 tile in
-// smem (columns K..r16(K) zero), W row-major bf16 in global memory.
-__device__ __forceinline__ void gemm_fwd_seg(Acc& acc, const bf16* A, int lda, int K,
-                                             const bf16* __restrict__ W, int wrow0, int N,
-                                             bf16* slab0, bf16* slab1) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int Np = r16(N), NT = Np >> 4, Kp = r16(K), sld = Np + PAD;
-  const int nslab = (Kp + KS - 1) / KS;
-  __syncthreads();  // earlier readers of the slabs and writers of A are done
-  load_fwd_slab(slab0, W, wrow0, 0, K, N);
-  cp_async_commit();
-  for (int s = 0; s < nslab; ++s) {
-    const bf16* cur = (s & 1) ? slab1 : slab0;
-    if (s + 1 < nslab) {
-      load_fwd_slab((s & 1) ? slab0 : slab1, W, wrow0, (s + 1) * KS, K, N);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (warp < NT) {
-      const int k0 = s * KS, kend = imin(KS, Kp - k0);
-      for (int kk = 0; kk < kend; kk += 16) {
-        uint32_t a[4][4];
-#pragma unroll
-        for (int rt = 0; rt < 4; ++rt)
-          ldsm_x4(a[rt], A + (rt * 16 + (lane & 15)) * lda + k0 + kk + (lane >> 4) * 8);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int ct = warp + NWARP * j;
-          if (ct < NT) {
-            uint32_t b[4];
-            ldsm_x4_t(b, cur + (kk + (lane & 15)) * sld + ct * 16 + (lane >> 4) * 8);
-#pragma unroll
-            for (int rt = 0; rt < 4; ++rt) {
-              mma16816(acc[rt][j][0], a[rt], b[0], b[1]);
-              mma16816(acc[rt][j][1], a[rt], b[2], b[3]);
+// ---------------------------------------------------------------------------
+// Forward: wgmma on a resident activation tile, weights by a TMA ring
+// ---------------------------------------------------------------------------
+
+constexpr int FT = 128;                  // rows of a forward tile: two warpgroups of 64
+constexpr int FWD_THREADS = 384;         // consumer warpgroups 0-1, producer warpgroup 2
+constexpr int F_ATOM = FT * 128;         // 64 columns of a 128-row tile, 128-byte swizzle
+constexpr int F_ACT = 4 * F_ATOM;        // the activation tile, widths up to 256
+constexpr int F_BOX = 64 * 128;          // 64 rows x 64 columns: a TMA box, a warpgroup's atom
+constexpr int F_SLAB = 2 * F_BOX;        // 64 contraction rows x 128 output columns of W
+constexpr int F_MAXSTAGES = 8;
+constexpr int F_SMEM_MAX = 232448;       // shared memory a block may have
+
+// Shared memory of a forward launch (byte offsets from a 1,024-aligned
+// base): the activation tile, the bf16 x tile (64-column atoms up to r16(E)),
+// the weight ring (as many stages as fit, at most F_MAXSTAGES), barriers.
+struct FwdLayout {
+  int xatoms, nstage;
+  size_t off_x, off_ring, off_bar, bytes;
+};
+
+__host__ __device__ inline FwdLayout fwd_layout(int E) {
+  FwdLayout L;
+  L.xatoms = (r16(E) + 63) / 64;
+  L.off_x = F_ACT;
+  L.off_ring = L.off_x + (size_t)L.xatoms * F_ATOM;
+  const size_t fixed = L.off_ring + 2 * F_MAXSTAGES * 8 + 1024;  // + barriers, + alignment slack
+  L.nstage = imin(F_MAXSTAGES, (int)((F_SMEM_MAX - fixed) / F_SLAB));
+  L.off_bar = L.off_ring + (size_t)L.nstage * F_SLAB;
+  L.bytes = L.off_bar + 2 * F_MAXSTAGES * 8 + 1024;
+  return L;
+}
+
+struct FwdParams {
+  CUtensorMap wmap[MAXL][2];  // W_l's rows of segment s as (out_dim columns, rows, videos)
+  CUtensorMap smap[MAXL];     // stash layer i (1..n-1) as (r16 columns, B rows, videos)
+  ChainDesc d;
+  int wtma[MAXL];             // 1 where layer l's slabs come by TMA, else by hand
+  const float* x;
+  float* out;
+  int B, nl;                  // rows; layers run (n, or n - 1 without the output layer)
+};
+
+// The contraction segments of layer l: segment 0 is the kept input (bf16(x)
+// for layer 0, else the activation tile) against W_l's first rows; a skip
+// layer's segment 1 is bf16(x) against the E rows after them.
+__host__ __device__ __forceinline__ int fwd_nseg(const ChainDesc& d, int l) {
+  return (l > 0 && d.skip[l]) ? 2 : 1;
+}
+__host__ __device__ __forceinline__ int fwd_seg_k(const ChainDesc& d, int l, int s) {
+  return s == 0 ? kept_width(d, l) : d.E;
+}
+
+// Producer warp: every weight slab of the chain, in the order the consumers
+// take them (layers, 128-column halves of the output, segments, 64-row
+// contraction chunks).  A slab is W's 64 x 128 block as two 64 x 64 boxes,
+// 128-byte swizzled with the contraction outermost (wgmma's MN-major B);
+// boxes wholly past the layer's width are not loaded (their products land
+// in columns the epilogue zeroes).  A width TMA cannot stride (not a
+// multiple of 8: the output layer's 1-3 columns) is written into the same
+// swizzled slab by the warp, zero outside the layer.
+__device__ __forceinline__ void fwd_produce(const FwdParams& p, unsigned char* ring,
+                                            uint64_t* full, uint64_t* empty, int nstage, int v,
+                                            int lane) {
+  using namespace hopper;
+  const ChainDesc& d = p.d;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int l = 0; l < p.nl; ++l) {
+    const int N = d.out_dim[l], nhalf = (N + 127) / 128;
+    const bf16* __restrict__ W = layer_w(d, l, v);
+    for (int h = 0; h < nhalf; ++h)
+      for (int s = 0; s < fwd_nseg(d, l); ++s) {
+        const int K = fwd_seg_k(d, l, s), rowoff = s == 0 ? 0 : d.out_dim[l - 1];
+        for (int c = 0; c < (r16(K) + 63) / 64; ++c) {
+          mbar_wait(empty + stage, phase ^ 1);
+          unsigned char* slab = ring + stage * F_SLAB;
+          if (p.wtma[l]) {
+            if (lane == 0) {
+              const int nbox = N - h * 128 > 64 ? 2 : 1;
+              mbar_arrive_expect_tx(full + stage, nbox * F_BOX);
+              for (int a = 0; a < nbox; ++a)
+                tma_load_3d(slab + a * F_BOX, &p.wmap[l][s], full + stage, h * 128 + 64 * a, c * 64,
+                            v);
             }
+          } else {
+            for (int idx = lane; idx < F_SLAB / 16; idx += 32)
+              *reinterpret_cast<uint4*>(slab + 16 * idx) = make_uint4(0u, 0u, 0u, 0u);
+            __syncwarp();
+            const int rows = imin(64, K - c * 64), cols = imin(128, N - h * 128);
+            const bf16* __restrict__ Ws = W + (size_t)(rowoff + c * 64) * N + h * 128;
+            for (int e = lane; e < rows * cols; e += 32) {
+              const int r = e / cols, cc = e - r * cols;
+              *reinterpret_cast<bf16*>(slab + (cc >> 6) * F_BOX + sw128_offset(r, cc & 63)) =
+                  Ws[(size_t)r * N + cc];
+            }
+            fence_async_smem();
+            __syncwarp();
+            if (lane == 0) mbar_arrive(full + stage);
+          }
+          if (++stage == nstage) {
+            stage = 0;
+            phase ^= 1;
           }
         }
       }
-    }
-    __syncthreads();  // `cur` is refilled two slabs later
   }
 }
 
-// Forward over one tile.  STASH: write the bf16 post-relu input of every
-// layer 1..n-1 to `sv`.
-// OUTPUT: run the last layer and store `out`; the remat backward's recompute
-// skips it, since the backward does not need the chain's output.
-template <bool STASH, bool OUTPUT>
-__device__ __forceinline__ void chain_forward(const ChainDesc& d, const SmemLayout& L, int v,
-                                              const float* __restrict__ x, int B, int row0,
-                                              float* __restrict__ out, unsigned char* smem,
-                                              const StashView& sv) {
-  bf16* xs = reinterpret_cast<bf16*>(smem + L.off_xs);
-  bf16* act = reinterpret_cast<bf16*>(smem + L.off_act);
-  bf16* slab0 = reinterpret_cast<bf16*>(smem + L.off_slab0);
-  bf16* slab1 = reinterpret_cast<bf16*>(smem + L.off_slab1);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  const int Ep = r16(d.E);
-  for (int idx = threadIdx.x; idx < BM * Ep; idx += NTHREADS) {
-    const int r = idx / Ep, c = idx - r * Ep;
-    const int gr = row0 + r;
-    const float v = (gr < B && c < d.E) ? x[(size_t)gr * d.E + c] : 0.0f;
-    xs[r * L.xld + c] = __float2bfloat16(v);
-  }
-
-  const int nl = OUTPUT ? d.n_layers : d.n_layers - 1;
-  for (int l = 0; l < nl; ++l) {
-    const int N = d.out_dim[l], Np = r16(N), NT = Np >> 4;
-    Acc acc;
-    zero_acc(acc);
-    const bf16* __restrict__ Wl = layer_w(d, l, v);
-    if (l == 0) {
-      gemm_fwd_seg(acc, xs, L.xld, d.E, Wl, 0, N, slab0, slab1);
-    } else {
-      const int Kh = d.out_dim[l - 1];
-      gemm_fwd_seg(acc, act, L.ald, Kh, Wl, 0, N, slab0, slab1);
-      if (d.skip[l]) gemm_fwd_seg(acc, xs, L.xld, d.E, Wl, Kh, N, slab0, slab1);
-    }
-    // gemm_*_seg ends with __syncthreads: nobody reads act any more
-    const bool last = (l == d.n_layers - 1);
-    bf16* stash = (STASH && !last) ? sv.base + sv.off[l + 1] : nullptr;
-    const float* __restrict__ bias = layer_b(d, l, v);
+// acc += A's `ksteps` 16-wide contraction steps at a0 (K-major, the
+// warpgroup's 64 rows of a tile atom) times the slab at b0 (MN-major); a
+// whole chunk, the common case, as four straight-line products
+__device__ __forceinline__ void fwd_slab_products(float (&acc)[64], const unsigned char* a0,
+                                                  const unsigned char* b0, int ksteps) {
+  using namespace hopper;
+  if (ksteps == 4) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int ct = warp + NWARP * j;
-      if (ct >= NT) continue;
+    for (int k = 0; k < 4; ++k)
+      wgmma_m64n128<0, 1>(acc, sw128_desc(a0 + 32 * k, 16, 1024),
+                          sw128_desc(b0 + 2048 * k, F_BOX, 1024));
+  } else {
+    for (int k = 0; k < ksteps; ++k)
+      wgmma_m64n128<0, 1>(acc, sw128_desc(a0 + 32 * k, 16, 1024),
+                          sw128_desc(b0 + 2048 * k, F_BOX, 1024));
+  }
+}
+
+// The epilogue of output-column half H of a hidden layer: pk[2j + hr] =
+// the bf16 pair relu(acc + b) of row 16 wl + lane/4 + 8 hr, columns
+// H*128 + 8j + 2(lane%4) + {0, 1}; zero past the layer's width N.
+template <int H>
+__device__ __forceinline__ void fwd_half_epilogue(const float (&acc)[64],
+                                                  const float* __restrict__ bias, int N,
+                                                  uint32_t (&pk)[32], int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = H * 128 + 8 * j + 2 * t;
+    const float b0 = col < N ? __ldg(bias + col) : 0.0f;
+    const float b1 = col + 1 < N ? __ldg(bias + col + 1) : 0.0f;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const bf162 pr = __floats2bfloat162_rn(col < N ? relu_keep_nan(acc[4 * j + 2 * hr] + b0) : 0.0f,
+                                             col + 1 < N ? relu_keep_nan(acc[4 * j + 2 * hr + 1] + b1)
+                                                         : 0.0f);
+      memcpy(&pk[2 * j + hr], &pr, 4);
+    }
+  }
+}
+
+// pk of an epilogue of half H into the warpgroup's rows of a 128-row tile
+// (atoms of 64 columns, 128-byte swizzle): the next layer's A
+template <int H>
+__device__ __forceinline__ void tile_half_store(unsigned char* tile, const uint32_t (&pk)[32],
+                                                int w, int wl, int lane) {
+  using namespace hopper;
+  const int gl = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int col = 8 * j + 2 * t, r = 64 * w + 16 * wl + gl + 8 * hr;
+      *reinterpret_cast<uint32_t*>(tile + (2 * H + (col >> 6)) * F_ATOM +
+                                   sw128_offset(r, col & 63)) = pk[2 * j + hr];
+    }
+}
+
+// Consumer warpgroup w: rows [row0, row0 + 64) of the tile through the
+// whole chain.  STASH: each hidden layer's bf16 output, as it stands in the
+// activation tile, goes to the stash by TMA store (64 x 64 boxes, rows past
+// B dropped by TMA).  OUTPUT: the last layer's f32 rows go to `out`.
+template <bool STASH, bool OUTPUT>
+__device__ __forceinline__ void fwd_consume(const FwdParams& p, unsigned char* smem,
+                                            const FwdLayout& L, uint64_t* full, uint64_t* empty,
+                                            int w) {
+  using namespace hopper;
+  const ChainDesc& d = p.d;
+  const int v = blockIdx.y, B = p.B, E = d.E, nstage = L.nstage;
+  const int lt = threadIdx.x & 127, wl = lt >> 5, lane = lt & 31, gl = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * FT + 64 * w;
+  unsigned char* act = smem;
+  unsigned char* xt = smem + L.off_x;
+  const unsigned char* ring = smem + L.off_ring;
+
+  // bf16(x) of the warpgroup's rows into the x tile: the rows are one
+  // contiguous run of floats, read 16 bytes a thread where aligned (the
+  // loads of a pass go out before its stores); zero past B and past E
+  {
+    const int Ep = r16(E), n = 64 * E, real = imax(0, imin(64, B - row0)) * E;
+    const float* __restrict__ xs = p.x + ((size_t)v * B + row0) * E;
+    const bool vec = ((reinterpret_cast<uintptr_t>(xs) & 15) == 0);
+    constexpr int PRO = 4;  // float4 loads a thread issues before it stores
+    for (int base = 0; base < n; base += 128 * 4 * PRO) {
+      float vals[PRO][4];
+#pragma unroll
+      for (int u = 0; u < PRO; ++u) {
+        const int e0 = base + 4 * (lt + 128 * u);
+        if (vec && e0 + 3 < real) {
+          const float4 q = __ldg(reinterpret_cast<const float4*>(xs + e0));
+          vals[u][0] = q.x;
+          vals[u][1] = q.y;
+          vals[u][2] = q.z;
+          vals[u][3] = q.w;
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) vals[u][k] = e0 + k < real ? __ldg(xs + e0 + k) : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < PRO; ++u)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int e = base + 4 * (lt + 128 * u) + k;
+          if (e < n) {
+            const int r = e / E, c = e - r * E;
+            *reinterpret_cast<bf16*>(xt + (c >> 6) * F_ATOM + sw128_offset(64 * w + r, c & 63)) =
+                __float2bfloat16(vals[u][k]);
+          }
+        }
+    }
+    for (int idx = lt; idx < 64 * (Ep - E); idx += 128) {
+      const int r = idx / (Ep - E), c = E + idx - r * (Ep - E);
+      *reinterpret_cast<bf16*>(xt + (c >> 6) * F_ATOM + sw128_offset(64 * w + r, c & 63)) =
+          __float2bfloat16(0.0f);
+    }
+  }
+  fence_async_smem();
+  named_sync(1 + w, 128);
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int l = 0; l < p.nl; ++l) {
+    const int N = d.out_dim[l], nhalf = (N + 127) / 128, nseg = fwd_nseg(d, l);
+    const bool last = (l == d.n_layers - 1);
+    float acc[2][64];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 64; ++q) acc[h][q] = 0.0f;
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    wgmma_fence();
+    // half 0: a slab is freed once the group after it is issued
+    int prev = -1;
+    for (int s = 0; s < nseg; ++s) {
+      const int Kp = r16(fwd_seg_k(d, l, s));
+      const unsigned char* A = (l == 0 || s == 1) ? xt : act;
+      for (int c = 0; c < (Kp + 63) / 64; ++c) {
+        mbar_wait(full + stage, phase);
+        wgmma_fence();
+        fwd_slab_products(acc[0], A + c * F_ATOM + w * F_BOX, ring + stage * F_SLAB,
+                          imin(4, (Kp - 64 * c) >> 4));
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (prev >= 0 && lt == 0) mbar_arrive(empty + prev);
+        prev = stage;
+        if (++stage == nstage) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    // half 1: its groups stay in flight through half 0's epilogue; should
+    // its slabs outnumber the ring's stages (a skip layer with E > 192),
+    // the oldest are waited for and freed as the ring runs out
+    const int first1 = stage;
+    int n1 = 0, freed1 = 0;
+    if (nhalf > 1) {
+      for (int s = 0; s < nseg; ++s) {
+        const int Kp = r16(fwd_seg_k(d, l, s));
+        const unsigned char* A = (l == 0 || s == 1) ? xt : act;
+        for (int c = 0; c < (Kp + 63) / 64; ++c) {
+          if (n1 >= nstage) {
+            wgmma_wait<1>();
+            for (; freed1 < n1 - 1; ++freed1)
+              if (lt == 0) mbar_arrive(empty + (first1 + freed1) % nstage);
+          }
+          mbar_wait(full + stage, phase);
+          wgmma_fence();
+          fwd_slab_products(acc[1], A + c * F_ATOM + w * F_BOX, ring + stage * F_SLAB,
+                            imin(4, (Kp - 64 * c) >> 4));
+          wgmma_commit();
+          if (n1 == 0) {
+            wgmma_wait<1>();  // half 0 is done
+            if (lt == 0) mbar_arrive(empty + prev);
+          }
+          ++n1;
+          if (++stage == nstage) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    } else {
+      wgmma_wait<0>();
+      if (lt == 0) mbar_arrive(empty + prev);
+    }
+    fence_acc(acc[0]);
+    const float* __restrict__ bias = layer_b(d, l, v);
+
+    if (OUTPUT && last) {  // the chain's f32 output, real rows and columns only
+      wgmma_wait<0>();
+      fence_acc(acc[1]);
+      for (; freed1 < n1; ++freed1)
+        if (lt == 0) mbar_arrive(empty + (first1 + freed1) % nstage);
+      float* __restrict__ out = p.out + (size_t)v * B * N;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int col = ct * 16 + h * 8 + 2 * t;
-        const float b0 = col < N ? bias[col] : 0.0f;
-        const float b1 = col + 1 < N ? bias[col + 1] : 0.0f;
+        if (h >= nhalf) continue;
 #pragma unroll
-        for (int rt = 0; rt < 4; ++rt) {
+        for (int j = 0; j < 16; ++j) {
+          const int col = h * 128 + 8 * j + 2 * t;
+          if (col >= N) continue;
+          const float b0 = __ldg(bias + col), b1 = col + 1 < N ? __ldg(bias + col + 1) : 0.0f;
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr) {
-            const int row = rt * 16 + g + 8 * hr;
-            const float v0 = acc[rt][j][h][2 * hr] + b0;
-            const float v1 = acc[rt][j][h][2 * hr + 1] + b1;
-            if (last) {
-              const int gr = row0 + row;
-              if (gr < B) {
-                if (col < N) out[(size_t)gr * N + col] = v0;
-                if (col + 1 < N) out[(size_t)gr * N + col + 1] = v1;
-              }
-            } else {
-              const bf162 p = __floats2bfloat162_rn(col < N ? relu_keep_nan(v0) : 0.0f,
-                                                    col + 1 < N ? relu_keep_nan(v1) : 0.0f);
-              *reinterpret_cast<bf162*>(act + row * L.ald + col) = p;
-              if (STASH && row0 + row < B)
-                *reinterpret_cast<bf162*>(stash + (size_t)(row0 + row) * Np + col) = p;
-            }
+            const int gr = row0 + 16 * wl + gl + 8 * hr;
+            if (gr >= B) continue;
+            out[(size_t)gr * N + col] = acc[h][4 * j + 2 * hr] + b0;
+            if (col + 1 < N) out[(size_t)gr * N + col + 1] = acc[h][4 * j + 2 * hr + 1] + b1;
           }
         }
       }
+      break;
     }
-    // the next layer's gemm starts with __syncthreads before reading act
+
+    // relu(acc + b) as bf16 into the activation tile; half 0's results wait
+    // in registers until half 1's products have read the tile
+    uint32_t pk[32];
+    fwd_half_epilogue<0>(acc[0], bias, N, pk, lane);
+    wgmma_wait<0>();
+    fence_acc(acc[1]);
+    for (; freed1 < n1; ++freed1)
+      if (lt == 0) mbar_arrive(empty + (first1 + freed1) % nstage);
+    if (STASH && l > 0) {  // the last stash store has read the tile
+      if (lt == 0) bulk_wait_read<0>();
+      named_sync(1 + w, 128);
+    }
+    tile_half_store<0>(act, pk, w, wl, lane);
+    if (nhalf > 1) {
+      fwd_half_epilogue<1>(acc[1], bias, N, pk, lane);
+      tile_half_store<1>(act, pk, w, wl, lane);
+    }
+    fence_async_smem();
+    named_sync(1 + w, 128);  // the tile is whole: the next layer and the store may read it
+    if (STASH && lt == 0 && row0 < B) {
+      for (int a = 0; a < (r16(N) + 63) / 64; ++a)
+        tma_store_3d(&p.smap[l + 1], act + a * F_ATOM + w * F_BOX, 64 * a, row0, v);
+      bulk_commit();
+    }
   }
-  __syncthreads();
+  if (STASH && lt == 0) bulk_wait<0>();
 }
 
-// The forward over one tile of video blockIdx.y.  STASH: the same chain,
-// which also fills `stash` (video v's at stash + v * stash_vs); OUTPUT:
-// run the last layer into `out`.  <true, false> is the remat backward's
-// recompute: the stash forward without its output layer, so the
-// activations it writes are bit for bit those a stash forward keeps.
+// The forward over one 128-row tile of video blockIdx.y.  STASH: the chain
+// also writes the bf16 input of layers 1..n-1 to the stash; OUTPUT: run the
+// last layer into `out`.  <true, false> is the remat backward's recompute:
+// the stash forward without its output layer, so the activations it writes
+// are bit for bit those a stash forward keeps.
 template <bool STASH, bool OUTPUT>
-__global__ void __launch_bounds__(NTHREADS, FWD_MIN_BLOCKS)
-chain_fwd_kernel(ChainDesc d, const float* __restrict__ x, float* __restrict__ out, int B,
-                 bf16* stash, size_t stash_vs) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const SmemLayout L = smem_layout(d);
-  const int v = blockIdx.y;
-  StashView sv{};
-  if (STASH) {
-    sv.base = stash + v * stash_vs;
-    stash_offsets(d, B, sv.off);
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+chain_fwd_kernel(const __grid_constant__ FwdParams p) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const FwdLayout L = fwd_layout(p.d.E);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.off_bar);
+  uint64_t* empty = full + F_MAXSTAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L.nstage; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 2);
+    }
+    fence_barrier_init();
   }
-  chain_forward<STASH, OUTPUT>(d, L, v, x + (size_t)v * B * d.E, B, blockIdx.x * BM,
-                               OUTPUT ? out + (size_t)v * B * d.out_dim[d.n_layers - 1] : nullptr,
-                               smem, sv);
+  __syncthreads();
+  const int wg = warpgroup_index();
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x < 2 * 128 + 32)
+      fwd_produce(p, smem + L.off_ring, full, empty, L.nstage, blockIdx.y, threadIdx.x & 31);
+    return;
+  }
+  setmaxnreg_inc<232>();
+  fwd_consume<STASH, OUTPUT>(p, smem, L, full, empty, wg);
 }
 
 // ---------------------------------------------------------------------------
@@ -444,15 +606,8 @@ constexpr int DW_STAGE_BYTES = 4 * DW_ATOM;  // two A blocks, two G blocks
 constexpr int DW_SMEM = DW_STAGES * DW_STAGE_BYTES + 128 + 1024;
 constexpr int DW_TARGET_BLOCKS = 2 * 132;    // about two waves of the H100's 132 SMs
 
-static_assert(REV_SMEM <= 232448 && DW_SMEM <= 232448, "shared memory of a block");
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024u - (hopper::smem_addr(p) & 1023u)) & 1023u);
-}
-
-__host__ __device__ __forceinline__ int kept_width(const ChainDesc& d, int i) {
-  return i == 0 ? d.E : d.out_dim[i - 1];
-}
+static_assert(REV_SMEM <= F_SMEM_MAX && DW_SMEM <= F_SMEM_MAX, "shared memory of a block");
+static_assert(GT_ATOM == F_ATOM, "the g tile and the activation tile share tile_half_store");
 
 // Segments of the dW GEMM: layer i's rows fed by its kept input (A = the
 // stash layer, or bf16(x) for layer 0) and, for a skip layer, the rows fed
@@ -668,22 +823,6 @@ __device__ __forceinline__ void rev_half_epilogue(const float (&acc)[64],
   }
 }
 
-// pk of rev_half_epilogue<H> into the warpgroup's rows of the g tile
-template <int H>
-__device__ __forceinline__ void rev_half_store(unsigned char* gt, const uint32_t (&pk)[32], int w,
-                                               int wl, int lane) {
-  using namespace hopper;
-  const int gl = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int col = 8 * j + 2 * t, r = 64 * w + 16 * wl + gl + 8 * hr;
-      *reinterpret_cast<uint32_t*>(gt + (2 * H + (col >> 6)) * GT_ATOM +
-                                   sw128_offset(r, col & 63)) = pk[2 * j + hr];
-    }
-}
-
 // Consumer warpgroup w: rows [row0, row0 + 64) of the tile through the
 // whole reverse walk.
 __device__ __forceinline__ void rev_consume(const RevParams& p, unsigned char* smem,
@@ -850,10 +989,10 @@ __device__ __forceinline__ void rev_consume(const RevParams& p, unsigned char* s
     fence_acc(acc[1]);
     for (int c = 0; c < (nhalf > 1 ? nchunk : 0); ++c)
       if (lt == 0) mbar_arrive(empty + (first1 + c) % RSTAGES);
-    rev_half_store<0>(gt, pk, w, wl, lane);
+    tile_half_store<0>(gt, pk, w, wl, lane);
     if (nhalf > 1) {
       rev_half_epilogue<1>(acc[1], mask, pk, csl, wl, lane);
-      rev_half_store<1>(gt, pk, w, wl, lane);
+      tile_half_store<1>(gt, pk, w, wl, lane);
     }
     fence_async_smem();
     named_sync(1 + w, 128);  // the tile is whole: the next layer may read it
@@ -899,7 +1038,7 @@ chain_reverse_kernel(const __grid_constant__ RevParams p) {
     fence_barrier_init();
   }
   __syncthreads();
-  const int wg = threadIdx.x >> 7;
+  const int wg = warpgroup_index();
   if (wg == 2) {
     setmaxnreg_dec<40>();
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
@@ -1109,18 +1248,49 @@ bool make_map(CUtensorMap* m, const void* base, int cols, int rows, int V, size_
 }
 
 // forward launch over V videos, with (STASH) or without a caller-owned stash
+// (video v's at stash + v * stash_vs elements)
 template <bool STASH, bool OUTPUT>
 int launch_fwd(const ChainDesc* d, const float* x, float* out, bf16* stash, size_t stash_vs,
                int B, int V, cudaStream_t st) {
-  const SmemLayout L = smem_layout(*d);
-  const int ntiles = (B + BM - 1) / BM;
-  cudaError_t err = cudaFuncSetAttribute(chain_fwd_kernel<STASH, OUTPUT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L.bytes);
-  if (err != cudaSuccess) return (int)err;
-  chain_fwd_kernel<STASH, OUTPUT><<<dim3(ntiles, V), NTHREADS, L.bytes, st>>>(*d, x, out, B, stash,
-                                                                             stash_vs);
-  return (int)cudaGetLastError();
+  const int n = d->n_layers;
+  const FwdLayout L = fwd_layout(d->E);
+  FwdParams* fp = new FwdParams;
+  memset(fp, 0, sizeof(FwdParams));
+  fp->d = *d;
+  fp->x = x;
+  fp->out = out;
+  fp->B = B;
+  fp->nl = OUTPUT ? n : n - 1;
+  for (int l = 0; l < fp->nl; ++l) {
+    const int N = d->out_dim[l];
+    bool ok = (N % 8 == 0);
+    for (int s = 0; s < fwd_nseg(*d, l) && ok; ++s) {
+      const int rowoff = s == 0 ? 0 : d->out_dim[l - 1];
+      ok = make_map(&fp->wmap[l][s], d->W[l] + (size_t)rowoff * N, N, fwd_seg_k(*d, l, s), V,
+                    (size_t)N * 2, (size_t)d->in_dim[l] * N * 2, 64, 64);
+    }
+    fp->wtma[l] = ok;
+  }
+  bool ok = true;
+  if (STASH) {
+    size_t soff[MAXL] = {};
+    stash_offsets(*d, B, soff);
+    for (int i = 1; i < n; ++i) {
+      const int w = r16(d->out_dim[i - 1]);
+      ok = ok && make_map(&fp->smap[i], stash + soff[i], w, B, V, (size_t)w * 2, stash_vs * 2, 64,
+                          64);
+    }
+  }
+  cudaError_t err = ok ? cudaFuncSetAttribute(chain_fwd_kernel<STASH, OUTPUT>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              (int)L.bytes)
+                       : cudaErrorInvalidValue;
+  if (err == cudaSuccess) {
+    chain_fwd_kernel<STASH, OUTPUT><<<dim3((B + FT - 1) / FT, V), FWD_THREADS, L.bytes, st>>>(*fp);
+    err = cudaGetLastError();
+  }
+  delete fp;
+  return (int)err;
 }
 
 // the launches of a backward, as bits of `pieces`
@@ -1303,8 +1473,8 @@ int imlp_chain_bwd_pieces(const ChainDesc* d, const float* x, const float* g, co
 
 // Registers, local (spill) bytes a thread and dynamic shared memory of a
 // launch of kernel `which`: 0-2 the forward <false, true>, <true, true>,
-// <true, false> (the latter at the widest layer, 256), 3 the reverse pass,
-// 4 the dW GEMM, 5 the reduction.
+// <true, false> (at an input width up to 64, as the fit's networks have),
+// 3 the reverse pass, 4 the dW GEMM, 5 the reduction.
 int imlp_chain_kernel_attrs(int which, int* regs, int* local_bytes, int* smem_bytes) {
   const void* fns[6] = {(const void*)chain_fwd_kernel<false, true>,
                         (const void*)chain_fwd_kernel<true, true>,
@@ -1315,12 +1485,8 @@ int imlp_chain_kernel_attrs(int which, int* regs, int* local_bytes, int* smem_by
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(&a, fns[which]);
   if (err != cudaSuccess) return (int)err;
-  ChainDesc wide{};
-  wide.n_layers = 2;
-  wide.E = MAXW;
-  wide.out_dim[0] = wide.out_dim[1] = MAXW;
-  const int dyn[6] = {(int)smem_layout(wide).bytes, (int)smem_layout(wide).bytes,
-                      (int)smem_layout(wide).bytes, REV_SMEM, DW_SMEM, 0};
+  const int fwd = (int)fwd_layout(64).bytes;
+  const int dyn[6] = {fwd, fwd, fwd, REV_SMEM, DW_SMEM, 0};
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
   *smem_bytes = dyn[which] + (int)a.sharedSizeBytes;

@@ -8,8 +8,9 @@ when the windows cluster) and "resident" (small levels held whole in shared
 memory).  This module:
 
   * `corr_lookup_cuda` checks its tensors, allocates the output with
-    `torch.empty`, launches the chosen body on the current stream without
-    synchronising, raises on a non-zero `cudaGetLastError()`, and counts
+    `torch.empty`, launches the chosen body on the current stream of the
+    tensors' card with that card current, without synchronising, raises on
+    a non-zero `cudaGetLastError()`, and counts
     lookups in `launches["lookup"]`, `["lookup_shared"]` or
     `["lookup_resident"]` (one per call: the four levels are one launch);
   * `select_body` reads the JAX package's switches (DEFLICKER_CORR_SHARED,
@@ -258,16 +259,19 @@ def corr_lookup_cuda(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
         return out
     lib = _library()
     mask, tile = 0, 1
-    if body == "resident":
-        keep = resident_levels([tuple(lvl.shape[1:3]) for lvl in fmap2_pyramid],
-                               D, resident_capacity(), resident_gate_bytes())
-        mask = sum(1 << l for l in keep)
-        tile = _resident_tile(B, H * W, fmap1.device)
-    err = lib.corr_lookup(
-        ctypes.byref(d), fmap1.data_ptr(), coords.data_ptr(), out.data_ptr(),
-        B, H * W, D, radius, _BODY_CODE[body], mask, tile,
-        staged.data_ptr() if staged is not None else None,
-        torch.cuda.current_stream(fmap1.device).cuda_stream)
+    # the card of the tensors current: the capacity query, the kernel's
+    # attributes and the launch all act on the current device
+    with torch.cuda.device(fmap1.device):
+        if body == "resident":
+            keep = resident_levels([tuple(lvl.shape[1:3]) for lvl in fmap2_pyramid],
+                                   D, resident_capacity(), resident_gate_bytes())
+            mask = sum(1 << l for l in keep)
+            tile = _resident_tile(B, H * W, fmap1.device)
+        err = lib.corr_lookup(
+            ctypes.byref(d), fmap1.data_ptr(), coords.data_ptr(), out.data_ptr(),
+            B, H * W, D, radius, _BODY_CODE[body], mask, tile,
+            staged.data_ptr() if staged is not None else None,
+            torch.cuda.current_stream(fmap1.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"corr_lookup ({body} body) failed: CUDA error {err}")
     launches[_COUNTER[body]] += 1

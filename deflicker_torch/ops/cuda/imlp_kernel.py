@@ -9,7 +9,8 @@ which TPU kernels it replaces, its bound and its design).  This module:
     `imlp_chain_bwd_stash_cuda` (the stash pair: the forward also writes the
     bf16 post-relu input of layers 1..n-1 to one buffer that autograd keeps,
     the backward reads it) check their tensors, allocate outputs, stash and
-    scratch with `torch.empty`, launch on the current stream, raise on a
+    scratch with `torch.empty`, launch on the current stream of the
+    tensors' card with that card current (`torch.cuda.device`), raise on a
     non-zero `cudaGetLastError()`, and count launches in `launches["fwd"]`,
     `["bwd"]`, `["fwd_stash"]`, `["bwd_stash"]` (and, for calls with a
     video axis, `["fwd_v"]`, `["bwd_v"]`, `["fwd_stash_v"]`,
@@ -371,17 +372,17 @@ def _launch_fwd(xe, weights, biases, skip_layers, with_stash: bool):
         return out, stash
     lib = _library()
     suffix = "_v" if lead else ""
-    if with_stash:
-        err = lib.imlp_chain_fwd_stash(ctypes.byref(d), xe.data_ptr(),
-                                       out.data_ptr(), stash.data_ptr(), B, V,
-                                       _stream(xe.device))
-        _raise_on(err, "imlp_chain_fwd_stash")
-        launches["fwd_stash" + suffix] += 1
-    else:
-        err = lib.imlp_chain_fwd(ctypes.byref(d), xe.data_ptr(),
-                                 out.data_ptr(), B, V, _stream(xe.device))
-        _raise_on(err, "imlp_chain_fwd")
-        launches["fwd" + suffix] += 1
+    with torch.cuda.device(xe.device):
+        if with_stash:
+            err = lib.imlp_chain_fwd_stash(ctypes.byref(d), xe.data_ptr(),
+                                           out.data_ptr(), stash.data_ptr(), B,
+                                           V, _stream(xe.device))
+        else:
+            err = lib.imlp_chain_fwd(ctypes.byref(d), xe.data_ptr(),
+                                     out.data_ptr(), B, V, _stream(xe.device))
+    kind = "fwd_stash" if with_stash else "fwd"
+    _raise_on(err, "imlp_chain_" + kind)
+    launches[kind + suffix] += 1
     return out, stash
 
 
@@ -436,25 +437,24 @@ def _launch_bwd(xe, weights, biases, skip_layers, g, need_dx,
         lib = _library()
         dx_ptr = dx.data_ptr() if dx is not None else None
         suffix = "_v" if lead else ""
-        if stash is None:
-            scratch = torch.empty(
-                V * lib.imlp_chain_bwd_scratch_bytes(ctypes.byref(d), B),
-                dtype=torch.uint8, device=xe.device)
-            err = lib.imlp_chain_bwd(
-                ctypes.byref(d), xe.data_ptr(), g.data_ptr(), dx_ptr,
-                grads.data_ptr(), B, V, scratch.data_ptr(), _stream(xe.device))
-            _raise_on(err, "imlp_chain_bwd")
-            launches["bwd" + suffix] += 1
-        else:
-            scratch = torch.empty(
-                V * lib.imlp_chain_bwd_stash_scratch_bytes(ctypes.byref(d), B),
-                dtype=torch.uint8, device=xe.device)
-            err = lib.imlp_chain_bwd_stash(
-                ctypes.byref(d), xe.data_ptr(), g.data_ptr(),
-                stash.data_ptr(), dx_ptr, grads.data_ptr(), B, V,
-                scratch.data_ptr(), _stream(xe.device))
-            _raise_on(err, "imlp_chain_bwd_stash")
-            launches["bwd_stash" + suffix] += 1
+        query = (lib.imlp_chain_bwd_scratch_bytes if stash is None
+                 else lib.imlp_chain_bwd_stash_scratch_bytes)
+        scratch = torch.empty(V * query(ctypes.byref(d), B), dtype=torch.uint8,
+                              device=xe.device)
+        with torch.cuda.device(xe.device):
+            if stash is None:
+                err = lib.imlp_chain_bwd(
+                    ctypes.byref(d), xe.data_ptr(), g.data_ptr(), dx_ptr,
+                    grads.data_ptr(), B, V, scratch.data_ptr(),
+                    _stream(xe.device))
+            else:
+                err = lib.imlp_chain_bwd_stash(
+                    ctypes.byref(d), xe.data_ptr(), g.data_ptr(),
+                    stash.data_ptr(), dx_ptr, grads.data_ptr(), B, V,
+                    scratch.data_ptr(), _stream(xe.device))
+        kind = "bwd" if stash is None else "bwd_stash"
+        _raise_on(err, "imlp_chain_" + kind)
+        launches[kind + suffix] += 1
     dWs, dbs, off = [], [], 0
     for a, b in shapes:
         dWs.append(grads.narrow(-1, off, a * b).view(lead + (a, b)))
@@ -526,12 +526,15 @@ def bwd_piece_launcher(xe, weights, biases, skip_layers, g, need_dx,
             dx.data_ptr() if dx is not None else None, grads.data_ptr(), B, V,
             scratch.data_ptr(), _stream(xe.device), int(stash is None))
 
-    def piece(name: str) -> None:
-        _raise_on(lib.imlp_chain_bwd_pieces(*args, BWD_PIECES[name]),
-                  f"imlp_chain_bwd_pieces({name})")
+    def launch(pieces: int, what: str) -> None:
+        with torch.cuda.device(xe.device):
+            err = lib.imlp_chain_bwd_pieces(*args, pieces)
+        _raise_on(err, what)
 
-    _raise_on(lib.imlp_chain_bwd_pieces(*args, sum(BWD_PIECES.values())),
-              "imlp_chain_bwd_pieces")
+    def piece(name: str) -> None:
+        launch(BWD_PIECES[name], f"imlp_chain_bwd_pieces({name})")
+
+    launch(sum(BWD_PIECES.values()), "imlp_chain_bwd_pieces")
     piece.keep = (d, scratch, grads, dx)   # alive as long as the launcher
     return piece
 

@@ -40,6 +40,15 @@ CASES = {
                        skip_layers=()), 1111),
     "two-layers": (dict(input_dim=3, output_dim=2, hidden_dim=48,
                         use_positional=False, num_layers=2, skip_layers=()), 65),
+    # encoded inputs wider than 64 at the widest layers: E = 80 (two x-tile
+    # atoms, skip layers of 4 + 2 slabs a half) and E = 210 (four atoms:
+    # a skip layer's 4 + 4 slabs a half outnumber the forward's 6 stages)
+    "wide-input-80": (dict(input_dim=2, output_dim=3, hidden_dim=256,
+                           use_positional=True, positional_dim=20, num_layers=8,
+                           skip_layers=(4, 7)), 1500),
+    "wide-input-210": (dict(input_dim=3, output_dim=2, hidden_dim=256,
+                            use_positional=True, positional_dim=35, num_layers=6,
+                            skip_layers=(3,)), 700),
 }
 
 
@@ -585,3 +594,76 @@ def test_backward_at_tile_and_slice_edges(name, cuda_device):
                                                          need_dx))
                 for a, b in zip(rem, want):
                     assert torch.isfinite(a).all() and _rel(a, b) < 2e-2, where
+
+
+# ---------------------------------------------------------------------------
+# the forward at the edges of its tiles
+# ---------------------------------------------------------------------------
+
+FWD_EDGE_BATCHES = (1, 63, 64, 65, 127, 128, 129, 257)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_forward_at_tile_edges(name, cuda_device):
+    """The forward kernels around a warpgroup's 64 rows and a block's
+    128-row tile, one video and three.  Rows are independent, so each edge
+    batch must give the first rows of a 300-row call's output and stash bit
+    for bit (nothing of a row depends on its neighbours, nothing lands past
+    B); the 300-row call within 1e-2 (relative Frobenius, as above) of the
+    plain twins, output and every stash layer, its stash padding zero; the
+    stash forward's output bit-equal to the forward's; a V = 3 call
+    bit-equal to the one-video calls."""
+    kw, _ = CASES[name]
+    spec = timlp.IMLPSpec(**kw)
+    sk = spec.skip_layers
+    big = 300
+    for V in (1, 3):
+        gen = torch.Generator().manual_seed(V)
+        params = timlp.imlp_init(spec, gen, cuda_device, n_videos=V if V > 1 else None)
+        lead = (V,) if V > 1 else ()
+        x = (torch.rand(lead + (big, spec.input_dim), generator=gen) * 2 - 1).to(cuda_device)
+        xe = (timlp.positional_encoding(x, spec.positional_dim)
+              if spec.use_positional else x).contiguous()
+        ws = [p["w"].detach() for p in params]
+        bs = [p["b"].detach().contiguous() for p in params]
+        wb = [w.to(torch.bfloat16).contiguous() for w in ws]
+
+        def views(stash, B, v=None):
+            if v is None:
+                return K.stash_views(stash, wb, B)
+            return K.stash_views(stash[v], [w[v] for w in wb], B)
+
+        y, stash = K.imlp_chain_fwd_stash_cuda(xe, wb, bs, sk)
+        torch.cuda.synchronize()
+        assert torch.equal(y, K.imlp_chain_fwd_cuda(xe, wb, bs, sk))
+        y_p, stash_p = K.imlp_chain_fwd_stash_plain(xe, ws, bs, sk)
+        assert _rel(y, y_p) < 1e-2
+        for v in range(V):
+            got = views(stash, big, v if V > 1 else None)
+            for i, a in enumerate(got):
+                want = stash_p[i][v] if V > 1 else stash_p[i]
+                assert _rel(a.float(), want) < 1e-2, (V, v, i)
+        flat = stash.view(V, -1) if V > 1 else stash.view(1, -1)
+        for v in range(V):
+            off = 0
+            for w in wb[:-1]:
+                width = w.shape[-1]
+                wp = (width + 15) // 16 * 16
+                assert not flat[v, off:off + big * wp].view(big, wp)[:, width:].any()
+                off += big * wp
+        if V > 1:
+            for v in range(V):
+                wv, bv = [w[v] for w in wb], [b[v] for b in bs]
+                y1, st1 = K.imlp_chain_fwd_stash_cuda(xe[v], wv, bv, sk)
+                assert torch.equal(y[v], y1) and torch.equal(stash[v], st1)
+        for B in FWD_EDGE_BATCHES:
+            xb = xe[..., :B, :].contiguous()
+            yb = K.imlp_chain_fwd_cuda(xb, wb, bs, sk)
+            ysb, stb = K.imlp_chain_fwd_stash_cuda(xb, wb, bs, sk)
+            torch.cuda.synchronize()
+            where = f"B={B} V={V}"
+            assert torch.equal(yb, y[..., :B, :]) and torch.equal(ysb, yb), where
+            for v in range(V):
+                vv = v if V > 1 else None
+                for a, b in zip(views(stb, B, vv), views(stash, big, vv)):
+                    assert torch.equal(a, b[:B]), where
