@@ -34,7 +34,8 @@ Phases (any failure exits non-zero before the result line):
      cut deeper.  Counters zeroed before, read after; flow files, artifacts
      and metrics checked for shape and finiteness (untrained weights give
      noise for flow, so no quality floor applies);
-  6. profile of one RAFT batch (8 x 432 x 768, 20 iterations);
+  6. profile of one RAFT batch (8 x 432 x 768, 20 iterations), once with
+     each correlation body;
   7. the dual-atlas pipeline: `run_pipeline` with `class_name` set on a
      second procedural clip (a textured disc moving over a moving
      background, per-frame gain flicker) whose `_seg` masks are on disk and
@@ -48,11 +49,13 @@ Phases (any failure exits non-zero before the result line):
   8. profile of the dual fit step, with the stash pair and with the remat
      pair, same seeds;
   9. the two other correlation bodies at the flow engine's shape (8 x 54 x
-     96, D = 256, four levels) and flows of +-0.5, +-3 and +-40 px: the
-     shared body (a block stages its 8 pixels' union window in shared
-     memory) and the resident body (levels 2-3 held whole in shared memory)
-     against the plain twin and bit-equal to the band body, timed beside
-     it, with the share of staged windows and the resident levels;
+     96, D = 256, four levels) and flows of +-0.5, +-3 and +-40 px: one
+     tensor-core kernel over 8 x 8 pixel tiles, the shared body (each tile's
+     union window staged by TMA) and the resident body (level 3 held whole
+     in shared memory) against the plain twin and the band body, two calls
+     bit-equal, shared and resident bit-equal at +-0.5, every tile staged
+     at +-0.5 and +-3; timed beside the band body, with the share of staged
+     tiles (counted and predicted) and the resident levels;
  10. the chain kernels with a video axis, V = 3 at the single fit's shapes,
      both pairs: against the twins, bit-equal to V one-video launches, one
      V = 3 launch timed against 3 one-video launches;
@@ -294,6 +297,12 @@ def print_build(logs: dict) -> None:
     for kname, (regs, local, smem) in imlp_kernel.kernel_attrs().items():
         print(f"[build] imlp_chain {kname}: {regs} registers, {local} local bytes "
               f"a thread, {smem} shared bytes a block", flush=True)
+    from deflicker_torch.ops.cuda import corr_kernel
+
+    for D, (regs, local, smem) in corr_kernel.kernel_attrs().items():
+        print(f"[build] corr_lookup corr_lookup_tc_kernel D={D}: {regs} registers, "
+              f"{local} local bytes a thread, {smem} shared bytes a block besides "
+              "resident levels", flush=True)
 
 
 def phase_chain_kernels(device) -> dict:
@@ -589,6 +598,24 @@ def corr_counts(f1, stored, coords, radius=4):
     return flops, nbytes, dots
 
 
+def corr_bound(f1, stored, coords) -> dict:
+    """The lookup's least time on the H100 from these inputs: the larger of
+    its bytes over the HBM rate and its operations at the rates they can
+    run at — each needed dot exactly on the tensor cores (f2 is bf16, f32
+    f1 three bf16 terms: 3 x 2 D flop a dot at the bf16 peak) and the 7 flop
+    of each output's combination at the f32 peak.  `bound_f32_ms` is the
+    bound of PRs 2-6 (every flop at the f32 peak outside the tensor cores)."""
+    flops, nbytes, dots = corr_counts(f1, stored, coords)
+    B, H, W, D = f1.shape
+    n_out = B * H * W * len(stored) * 81
+    t_ops = 3 * 2.0 * D * dots / PEAK_BF16_FLOPS + 7.0 * n_out / PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_f32_ms=1e3 * max(flops / PEAK_F32_FLOPS, t_bytes),
+                gflop=flops / 1e9, mbytes=nbytes / 1e6, dots=dots)
+
+
 def phase_corr_kernel(device) -> list:
     """The correlation kernel against its plain twin, then its time beside
     its bound, the twin and (for information: no single PyTorch call computes
@@ -611,17 +638,12 @@ def phase_corr_kernel(device) -> list:
         if not (err <= TOL_CORR_REL) or not (aerr <= TOL_CORR_ABS * scale):
             raise AssertionError(f"corr {name}: rel err {err} (<= {TOL_CORR_REL}), "
                                  f"max abs {aerr} (<= {TOL_CORR_ABS} x {scale})")
-        flops, nbytes, dots = corr_counts(f1, stored, coords)
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
         row = dict(shape=name, B=B, pixels=H * W, D=D, max_abs_err=aerr,
                    rel_err=err, zero_share=float((want == 0).float().mean()),
                    ms=cuda_ms(lambda: C.corr_lookup_cuda(f1, stored, coords)),
                    call_ms=cuda_ms(lambda: C.corr_lookup_cuda(f1, stored, coords), host=True),
                    plain_ms=cuda_ms(lambda: C.corr_lookup_plain(f1, stored, coords)),
-                   library_ms=None,
-                   bound_ms=1e3 * max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   gflop=flops / 1e9, mbytes=nbytes / 1e6, dots=dots)
+                   library_ms=None, **corr_bound(f1, stored, coords))
         # the materialized mode on the same inputs (f32 volume): what a solve
         # pays once (build) and per iteration (lookup) without the kernel
         row["materialized_build_ms"] = cuda_ms(
@@ -973,10 +995,14 @@ def phase_dual_profile(device, frames: Path, atlas_cfg, steps: int = 20) -> None
 
 
 def phase_corr_bodies(device) -> dict:
-    """The shared and resident bodies at the flow engine's shape and three
-    flow spreads: against the plain twin (the band body's tolerances), bit
-    for bit against the band body, then timed beside it and the twin; the
-    bound is the band body's (the same function on the same inputs)."""
+    """The shared and resident bodies (the tensor-core kernel) at the flow
+    engine's shape and three flow spreads: against the plain twin (the band
+    body's tolerances) and the band body; two calls bit-equal; at +-0.5 px,
+    where every (tile, level) takes the tensor cores in both modes, shared
+    and resident bit-equal; at +-0.5 and +-3 every tile of every level
+    staged.  Then timed beside the band body and the twin, with the share of
+    staged tiles by level (the kernel's counters, and `tile_plan`'s
+    prediction) and the resident levels."""
     import torch
 
     from deflicker_torch.ops.cuda import corr_kernel as C
@@ -985,46 +1011,62 @@ def phase_corr_bodies(device) -> dict:
     rows = {"shared": [], "resident": []}
     for spread in CORR_SPREADS:
         f1, _, stored, coords = corr_case(B, H, W, D, spread, device)
+        shapes = [tuple(lvl.shape[1:3]) for lvl in stored]
         band = C.corr_lookup_cuda(f1, stored, coords)
         want = C.corr_lookup_plain(f1, stored, coords)
         scale = float(want.abs().max())
-        flops, nbytes, dots = corr_counts(f1, stored, coords)
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+        bound = corr_bound(f1, stored, coords)
         band_ms = cuda_ms(lambda: C.corr_lookup_cuda(f1, stored, coords))
         plain_ms = cuda_ms(lambda: C.corr_lookup_plain(f1, stored, coords),
                            iters=5, warmup=1)
+        outs = {}
         for body in ("shared", "resident"):
             staged = torch.zeros(len(stored), dtype=torch.int32, device=device)
             got = C.corr_lookup_cuda(f1, stored, coords, body=body,
                                      staged=staged if body == "shared" else None)
+            again = C.corr_lookup_cuda(f1, stored, coords, body=body)
             torch.cuda.synchronize()
             err, aerr = rel_err(got, want), abs_err(got, want)
             if not (err <= TOL_CORR_REL) or not (aerr <= TOL_CORR_ABS * scale):
                 raise AssertionError(f"corr {body} +-{spread}: rel err {err}, "
                                      f"max abs {aerr} (x {scale})")
-            if not torch.equal(got, band):
-                raise AssertionError(f"corr {body} +-{spread}: output differs "
-                                     "from the band body's")
+            if not torch.equal(got, again):
+                raise AssertionError(f"corr {body} +-{spread}: two calls differ")
+            outs[body] = got
             row = dict(body=body, spread=spread, B=B, pixels=H * W, D=D,
-                       max_abs_err=aerr, rel_err=err, bit_equal_to_band=True,
+                       max_abs_err=aerr, rel_err=err,
+                       rel_err_to_band=rel_err(got, band),
+                       max_abs_to_band=abs_err(got, band),
                        ms=cuda_ms(lambda: C.corr_lookup_cuda(
                            f1, stored, coords, body=body)),
+                       call_ms=cuda_ms(lambda: C.corr_lookup_cuda(
+                           f1, stored, coords, body=body), host=True),
                        band_ms=band_ms, plain_ms=plain_ms, library_ms=None,
-                       bound_ms=1e3 * max(t_ops, t_bytes),
-                       bound_by="operations" if t_ops >= t_bytes else "bytes",
-                       dots=dots)
+                       **bound)
             if body == "shared":
-                blocks = -(-B * H * W // 8)
-                row["staged_share_by_level"] = [int(n) / blocks
+                tiles = B * -(-H // 8) * -(-W // 8)
+                plan = C.tile_plan(coords, shapes)
+                row["staged_share_by_level"] = [int(n) / tiles
                                                 for n in staged.tolist()]
-                row["staged_share"] = sum(staged.tolist()) / (blocks * len(stored))
+                row["predicted_share_by_level"] = [
+                    float(x) for x in plan.flatten(1).float().mean(1).tolist()]
+                if staged.tolist() != [int(n) for n in plan.flatten(1).sum(1).tolist()]:
+                    raise AssertionError(f"corr shared +-{spread}: staged {staged.tolist()}"
+                                         " differs from the tile plan")
+                if spread <= 3.0 and row["staged_share_by_level"] != [1.0] * len(stored):
+                    raise AssertionError(f"corr shared +-{spread}: staged share "
+                                         f"{row['staged_share_by_level']}, want 1.0")
             else:
-                row["resident_levels"] = list(C.resident_levels(
-                    [tuple(lvl.shape[1:3]) for lvl in stored], D,
-                    C.resident_capacity()))
                 row["resident_capacity_bytes"] = C.resident_capacity()
+                row["resident_levels"] = list(C.resident_levels(
+                    shapes, D, row["resident_capacity_bytes"]))
             rows[body].append(row)
-            print(f"[kernel] corr_{body} +-{spread}: {row}", flush=True)
+        same = bool(torch.equal(outs["shared"], outs["resident"]))
+        if spread == 0.5 and not same:
+            raise AssertionError("corr +-0.5: shared and resident differ")
+        for body in ("shared", "resident"):
+            rows[body][-1]["bit_equal_shared_resident"] = same
+            print(f"[kernel] corr_{body} +-{spread}: {rows[body][-1]}", flush=True)
     return rows
 
 
@@ -1375,7 +1417,8 @@ def report_profile(tag: str, unit: str, n: int, wall_plain: float, wall: float,
 def phase_raft_profile(device, frames: Path, solves: int = 3) -> None:
     """Where a flow solve's time goes: `RAFTFlow.compute_batch` on one batch
     of the clip (4 pairs x 2 directions at 432x768, 20 iterations, bf16),
-    upload and download included, timed plain and under torch.profiler."""
+    upload and download included, timed plain and under torch.profiler,
+    once with each correlation body (band, shared, resident)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1387,20 +1430,25 @@ def phase_raft_profile(device, frames: Path, solves: int = 3) -> None:
     a = np.stack(ims[:-1] + ims[1:])
     b = np.stack(ims[1:] + ims[:-1])
     engine = RAFTFlow(WORK / "raft-random.pth", device=device)
-    engine.compute_batch(a, b)                           # warm-up
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for _ in range(solves):
-        engine.compute_batch(a, b)
-    torch.cuda.synchronize()
-    wall_plain = time.time() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        for _ in range(solves):
-            engine.compute_batch(a, b)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    report_profile("raft-profile", "solve", solves, wall_plain, wall, prof)
+    switches = {"band": {}, "shared": {"DEFLICKER_CORR_SHARED": "1"},
+                "resident": {"DEFLICKER_CORR_RESIDENT": "1"}}
+    for body, values in switches.items():
+        with env(**values):
+            engine.compute_batch(a, b)                   # warm-up
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(solves):
+                engine.compute_batch(a, b)
+            torch.cuda.synchronize()
+            wall_plain = time.time() - t0
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.time()
+                for _ in range(solves):
+                    engine.compute_batch(a, b)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+        report_profile(f"raft-profile-{body}", "solve", solves, wall_plain, wall, prof)
 
 
 def main() -> int:
@@ -1483,8 +1531,10 @@ def main() -> int:
         "replaces": "deflicker_tpu/ops/pallas/corr_kernel.py:616",
         "launches": raft_launches["lookup"],
         "max_abs_err": max(x["max_abs_err"] for x in corr_rows),
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+        "ms": main_shape["ms"], "call_ms": main_shape["call_ms"],
+        "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
+        "bound_f32_ms": main_shape["bound_f32_ms"],
         "library_ms": None, "per_shape": corr_rows,
     })
     # the other two bodies, at the same shape and flow (+-3 px); launches of
@@ -1500,8 +1550,9 @@ def main() -> int:
                         + ("459" if body == "shared" else "571"),
             "launches": launched,
             "max_abs_err": max(x["max_abs_err"] for x in every),
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None, "per_shape": every,
+            "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "bound_f32_ms": r["bound_f32_ms"], "library_ms": None, "per_shape": every,
         })
     # the chain pairs with a video axis (V = 3, mapping1 + atlas summed);
     # launches of the chunked phase (remat) and of the batch phase (stash)

@@ -28,63 +28,91 @@
 //
 // What the TPU kernel's structure offers here too: the 81 window points of a
 // pixel share one fractional offset, so the window needs only the 10 x 10 dot
-// products of f1(p) with f2_l at integer positions, then 81 four-term
-// combinations; contracting over D before interpolating is legal because
-// both are linear.
+// products of f1(p) with f2_l at integer positions (a pixel's "table"), then
+// 81 four-term combinations; contracting over D before interpolating is legal
+// because both are linear.
 //
 // Bound on the H100.  At the flow engine's shape (B = 8, 54 x 96 pixels,
 // D = 256, 4 levels) the function must move f1 (42.5 MB), the bf16 pyramid
-// (28.1 MB) and the output (53.7 MB): 0.037 ms at 3.35 TB/s.  Its 100 dots
-// x 256 x 2 flop x 4 levels x 41,472 pixels are 8.5 GFLOP of f32 x bf16
-// products with f32 sums, a matrix-vector product per pixel: 0.127 ms at the
-// card's non-tensor f32 peak.  So operations bound it, and the traffic that
-// matters is not HBM's: every pixel re-reads 400 rows of 512 bytes that its
-// neighbours read too, out of L1/L2 (the whole bf16 pyramid fits L2).
+// (28.1 MB), the coords and the output (53.7 MB): 0.037 ms at 3.35 TB/s.
+// Its dots are exact on tensor cores: f2 is bf16, and f32 f1 is the sum of
+// three bf16 terms (t0 = bf16(f), t1 = bf16(f - t0), t2 = bf16(f - t0 - t1))
+// whose products with bf16 values are exact in f32.  The ~6.3 GFLOP of
+// needed dots at +-3 px, three times over, take 0.019 ms at 989 TFLOP/s; so
+// bytes bound the function.
 //
-// What every body shares.  One warp owns one pixel: f1(p) lives in registers
-// (D/32 floats a lane), so it is read once.  Per level the warp walks the 10
-// window rows; in a row the 10 integer positions are 10 neighbouring 2*D-byte
-// rows of f2, each read by the whole warp as 16 bytes a lane (at D = 256),
-// all ten issued before the first is used.  The ten partial dots of a lane
-// are reduced across the warp together by a packed butterfly (16 shuffles a
-// row where ten separate reductions take 50), the 10 x 10 table goes to
-// shared memory (400 bytes a warp), and the lanes write the level's 81
-// outputs as contiguous floats.  The bodies differ only in where a window row
-// is read from; each lane multiplies the same bf16 values by the same f1
-// registers in the same order, so the three bodies give bit-identical output.
+// Band body (row 5; also the route of a shared or
+// resident tile that cannot stage).  One warp owns one pixel on the CUDA
+// cores: f1(p) in registers (D/32 floats a lane); per level the warp walks
+// the 10 window rows, each row's 10 positions read as 16 bytes a lane,
+// reduced across the warp by a packed butterfly into the table in shared
+// memory; the lanes write the 81 outputs.  A block is 8 warps on 8
+// raster-consecutive pixels, reading global memory with a bounds test per
+// position standing in for padding.
 //
-//   * Band body: a block is 8 warps on 8 raster-consecutive pixels; a warp
-//     reads its rows from global memory with a bounds test per position
-//     standing in for padding, and the 8 overlapping windows meet in L1.
-//   * Shared body (the TPU's group-shared band): the same block, which per
-//     level reduces the 8 window corners in the block.  When the union of the
-//     8 windows spans at most SH_ROWS rows and SH_COLS columns (all 8 pixels
-//     real and of one batch element), the block stages the union window row
-//     by row into shared memory with cp.async, double-buffered (2 x SH_COLS x
-//     2D bytes: 32 KB at D = 256; positions outside the level are zero-filled
-//     by the copy), and each warp takes its 10 positions of a row from there.
-//     Otherwise (motion boundaries, the ragged end) each warp keeps the band
-//     body's global loads.  An optional counter per level records how many
-//     blocks took the staged window.
-//   * Resident body (the TPU's resident levels): the levels the caller marks
-//     resident (those whose bf16 bytes per batch element fit, together, in
-//     the block's dynamic shared memory) are copied whole into shared memory
-//     once per block with cp.async, and the warps read those levels' windows
-//     from there; the other levels take the band body's global loads inside
-//     the same launch.  The staging is amortised over many pixels: a block
-//     is 16 warps on one batch element's pixel tile (about N / (SMs / B)
-//     pixels, so the grid is about one wave of one block per SM), each warp
-//     walking every 16th pixel of the tile.  If the shared memory cannot be
-//     set up the launch returns the error; the wrapper raises.
+// Shared and resident bodies (rows 6 and 7): one kernel, corr_lookup_tc_kernel,
+// whose window products run as wgmma on the tensor cores.
+//   * Tile: 64 pixels, an 8 x 8 square of one batch element's grid (pixels
+//     past the ragged edge masked).  A block is two consumer warpgroups and
+//     one producer warp, persistent over a run of tiles of one batch element.
+//   * Operand A: the tile's f1 rows as TERMS bf16 terms (above), K-major in
+//     shared memory with the 128-byte swizzle, 64 channels an atom, shared by
+//     both consumer warpgroups.  TERMS = 2: the products keep 16 of f1's 24
+//     bits (at most 2^-17 relative a product); on the H100 at the engine's
+//     shape the output is within 2.5e-6 relative Frobenius (max abs 1.2e-5 of
+//     4.4) of the plain twin, and three terms (all 24 bits: 9.6e-7, 6.4e-6)
+//     took 0.25 ms instead of 0.21 (tools/corr_variants.py).  The tensor
+//     cores' own f32 sums bound the error either way.
+//   * Operand B, staged (shared mode, and resident mode's other levels): the
+//     tile's union window at level l, [xmin, xmax + 10) x [ymin, ymax + 10)
+//     over the 64 corners, cut into blocks of 8 x 8 positions, two blocks a
+//     group of 128 positions (wgmma's N); each group's 64-channel chunks come
+//     by TMA from a 4-D map of the level (D, W_l, H_l, B), box (64, 8, 8, 1),
+//     128-byte swizzle.  Group g goes to consumer warpgroup g % 2, whose own
+//     ring of full/empty mbarriers (RING stages of a chunk) is fed by its own
+//     lane of the producer warp, so each ring is taken in order by one
+//     consumer.  TMA reads zero at every coordinate outside the tensor,
+//     negative ones too: the lookup's zero outside the level, with no bounds
+//     test.  A union of at most ENV x ENV blocks stages (at the engine's
+//     shape every tile at +-0.5 and +-3 px); a larger one (motion boundaries,
+//     scattered flow) sends the tile's pixels through the band body's
+//     warp-per-pixel route for that level (two pixels a warp at a time), by
+//     design and counted (`staged`), never on a failure.
+//   * Operand B, resident (resident mode): the levels the caller marks are
+//     copied whole, batch element b's slice, once per block by TMA (a 3-D map
+//     (D, H_l W_l, B), box (64, 8, 1)) into shared memory in the same layout,
+//     positions in raster order; the tile's products then run against every
+//     position of the level, 128 at a time, which holds at any flow scatter.
+//   * Products: wgmma m64n128k16, bf16 -> f32, per group the chunks of D in
+//     order and in each the terms in order: the same chain for a (pixel,
+//     position) pair whichever operand holds the position, so staged and
+//     resident results are bit-equal.  The two consumer warpgroups take
+//     alternate groups, so one's selection runs under the other's products
+//     (one warpgroup with two accumulators does not: ptxas serializes wgmma
+//     when an accumulator is read while products are in flight).
+//   * Select-then-combine epilogue: each thread walks its accumulator
+//     fragments and writes entry (pixel m, position n) into m's table when n
+//     lies in m's window; then the band body's combination writes the 81
+//     outputs a level, consumer warp W for pixels 8W .. 8W + 7.
+// Shared memory at D = 256: A 65,536 B, the rings 6 x 16,384, the tables
+// 25,600, and what is left of the 227 KB (corr_resident_capacity) for
+// resident levels (level 3 alone at the engine's shape).  D = 32 rows are 64
+// bytes, below the swizzle's 128: such shared and resident launches take the
+// band body.
 //
 // Interface: plain C, loaded with ctypes; every launch goes on the caller's
-// stream, allocates nothing, and returns cudaGetLastError().
+// stream, allocates nothing, and returns cudaGetLastError() (or the error of
+// a tensor map or shared-memory set-up that failed: no other route is taken).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "hopper.cuh"
 
 #define CORR_MAX_LEVELS 8
 
@@ -101,10 +129,7 @@ constexpr int R = 4;              // window radius
 constexpr int K = 2 * R + 1;      // window points a side
 constexpr int K1 = K + 1;         // integer positions a side
 constexpr int ROWPAD = 16;        // K1 padded to a power of two for the butterfly
-constexpr int NWARP = 8;          // band and shared bodies: warps (pixels) a block
-constexpr int NWARP_RES = 16;     // resident body: warps a block
-constexpr int SH_ROWS = 12;       // shared body: most rows of a staged union window
-constexpr int SH_COLS = 32;       // shared body: most columns of a staged union window
+constexpr int NWARP = 8;          // band body: warps (pixels) a block
 constexpr unsigned FULL = 0xffffffffu;
 
 typedef __nv_bfloat16 bf16;
@@ -262,15 +287,6 @@ __device__ __forceinline__ void load_f1(const float* __restrict__ f1, long long 
   }
 }
 
-// 16-byte global -> shared copy; a false `valid` zero-fills the destination
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N)); }
-
 // ---------------------------------------------------------------------------
 // band body
 // ---------------------------------------------------------------------------
@@ -307,174 +323,482 @@ corr_lookup_kernel(const CorrDesc d, const float* __restrict__ f1, const float* 
 }
 
 // ---------------------------------------------------------------------------
-// shared body
+// shared and resident bodies: window products on tensor cores
 // ---------------------------------------------------------------------------
 
+constexpr int TILE = 8;                       // a tile: TILE x TILE pixels
+constexpr int NCWG = 2;                       // consumer warpgroups
+constexpr int NCT = NCWG * 128;               // consumer threads
+constexpr int TC_THREADS = NCT + 32;          // consumers, then the producer warp
+constexpr int TP = TILE * TILE;               // 64 pixels: wgmma's M
+constexpr int TERMS = 2;                      // bf16 terms of f1 (16 of its 24 bits)
+constexpr int BLK = 8;                        // a staged block: BLK x BLK positions
+constexpr int ENV = 4;                        // staging envelope: ENV x ENV blocks
+constexpr int RING = 3;                       // stages of a consumer warpgroup's ring
+constexpr int TC_STAGES = NCWG * RING;        // a stage: a 64-channel chunk of two blocks
+constexpr int ATOM = 64 * 128;                // 64 rows x 64 bf16 channels, 128-byte swizzle
+constexpr int GROUP = 128;                    // positions a product: wgmma's N, two blocks
+constexpr int STAGE_BYTES = 2 * ATOM;
+constexpr int TC_TABLES = TP * K1 * K1 * 4;   // the tile's tables
+constexpr int TC_BARS = 256;                  // mbarriers
+
+static_assert(RING >= 2, "a stage is freed once the chunk after it is issued");
+
+// what a (tile, level) takes: no products (an empty level), the resident
+// level's positions, the staged union window, or the band body's route
+enum Kind { K_EMPTY = 0, K_RESIDENT = 1, K_STAGED = 2, K_CORE = 3 };
+
+struct TcParams {
+  CUtensorMap win[CORR_MAX_LEVELS];  // level l as (D, W_l, H_l, B), box (64, 8, 8, 1)
+  CUtensorMap res[CORR_MAX_LEVELS];  // resident level l as (D, H_l W_l, B), box (64, 8, 1)
+  CorrDesc d;
+  const float* f1;
+  const float* coords;
+  float* out;
+  int* staged;                        // NULL or n_levels counters of staged tiles
+  int N, H, W, tiles_x, ntiles, tiles_per_block;
+  unsigned resident;                  // bit l: level l is resident
+  float inv_sqrt_d;
+  int res_rows[CORR_MAX_LEVELS];      // resident level l: positions rounded up to 8
+  unsigned res_off[CORR_MAX_LEVELS];  // its byte offset in the resident region
+  unsigned res_bytes;                 // the resident region's bytes
+};
+
+// Shared memory from a 1,024-aligned base: A (TERMS x D/64 atoms), the rings,
+// the resident levels, the tables (which also absorb the reads of a last
+// resident group past its level's rows), the barriers.
+__host__ __device__ constexpr size_t tc_a_bytes(int D) { return (size_t)TERMS * (D / 64) * ATOM; }
+__host__ __device__ constexpr size_t tc_fixed_bytes(int D) {
+  return tc_a_bytes(D) + (size_t)TC_STAGES * STAGE_BYTES + TC_TABLES + TC_BARS + 1024;
+}
+
+// A lane's two pixels of a tile, r = lane and lane + 32 (r = 8 y + x)
+struct TilePix {
+  float cx[2], cy[2];
+  bool in[2];
+};
+
+__device__ __forceinline__ void tile_origin(const TcParams& p, int tile, int& gx0, int& gy0) {
+  const int ty = tile / p.tiles_x;
+  gx0 = (tile - ty * p.tiles_x) * TILE;
+  gy0 = ty * TILE;
+}
+
+__device__ __forceinline__ void load_tile(const TcParams& p, int b, int tile, int lane,
+                                          TilePix& t) {
+  int gx0, gy0;
+  tile_origin(p, tile, gx0, gy0);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int r = lane + 32 * s, gx = gx0 + (r & 7), gy = gy0 + (r >> 3);
+    t.in[s] = gx < p.W && gy < p.H;
+    const size_t pix = (size_t)b * p.N + (size_t)gy * p.W + gx;
+    t.cx[s] = t.in[s] ? __ldg(p.coords + 2 * pix) : 0.0f;
+    t.cy[s] = t.in[s] ? __ldg(p.coords + 2 * pix + 1) : 0.0f;
+  }
+}
+
+struct Plan {
+  int kind, xmin, ymin, nbx, nby;
+};
+
+// The (tile, level) plan, computed alike by every warp of the block (the
+// whole warp calls it).  x0, y0: the corners of the lane's two pixels, a
+// far sentinel for a masked pixel so that no position falls in its window.
+__device__ __forceinline__ Plan plan_level(const TcParams& p, int l, const TilePix& t,
+                                           int (&x0)[2], int (&y0)[2]) {
+  const int Hl = p.d.H[l], Wl = p.d.W[l];
+  int lo_x = INT_MAX, hi_x = INT_MIN, lo_y = INT_MAX, hi_y = INT_MIN;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    x0[s] = y0[s] = -(1 << 28);
+    if (t.in[s]) {
+      const Corner c = corner(t.cx[s], t.cy[s], l, Hl, Wl);
+      x0[s] = c.x0;
+      y0[s] = c.y0;
+      lo_x = min(lo_x, c.x0);
+      hi_x = max(hi_x, c.x0);
+      lo_y = min(lo_y, c.y0);
+      hi_y = max(hi_y, c.y0);
+    }
+  }
+  const int xmin = __reduce_min_sync(FULL, lo_x), ymin = __reduce_min_sync(FULL, lo_y);
+  const int xmax = __reduce_max_sync(FULL, hi_x), ymax = __reduce_max_sync(FULL, hi_y);
+  const int nbx = (xmax - xmin + K1 + BLK - 1) / BLK, nby = (ymax - ymin + K1 + BLK - 1) / BLK;
+  int kind;
+  if (Hl < 1 || Wl < 1)
+    kind = K_EMPTY;
+  else if ((p.resident >> l) & 1u)
+    kind = K_RESIDENT;
+  else
+    kind = (nbx <= ENV && nby <= ENV) ? K_STAGED : K_CORE;
+  // read through shuffles, so that the compiler knows the plan is the same
+  // across the warp: wgmma under branches and loops on it is then not taken
+  // for divergent code (which ptxas serializes)
+  Plan q;
+  q.kind = __shfl_sync(FULL, kind, 0);
+  q.xmin = __shfl_sync(FULL, xmin, 0);
+  q.ymin = __shfl_sync(FULL, ymin, 0);
+  q.nbx = __shfl_sync(FULL, nbx, 0);
+  q.nby = __shfl_sync(FULL, nby, 0);
+  return q;
+}
+
+// The band body's route for two pixels of a tile at once (a level whose
+// union does not stage): both windows' row loads in flight together, then
+// each row reduced as `window_table` reduces it.  A masked pixel's corner
+// lies far outside the level: it loads nothing and its table is zero.
 template <int VPL>
-__global__ void __launch_bounds__(NWARP * 32, 2)
-corr_lookup_shared_kernel(const CorrDesc d, const float* __restrict__ f1,
-                          const float* __restrict__ coords, float* __restrict__ out,
-                          long long total, int N, float inv_sqrt_d, int* __restrict__ staged) {
+__device__ __forceinline__ void window_table2(const bf16* __restrict__ base, int Hl, int Wl,
+                                              const int (&x0)[2], const int (&y0)[2],
+                                              const float (&a)[2][VPL], float* t0, float* t1,
+                                              int lane) {
   typedef typename Raw<VPL>::type raw_t;
   constexpr int D = 32 * VPL;
-  constexpr int CHUNKS = D / 8;                      // 16-byte pieces of a position
-  __shared__ float table_s[NWARP][K1 * K1];
-  __shared__ __align__(16) bf16 rowbuf[2][SH_COLS * D];
-  __shared__ int corner_s[2][NWARP][3];              // x0, y0, batch (-1: no pixel)
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long pix = (long long)blockIdx.x * NWARP + warp;
-  const bool real = pix < total;       // no early exit: the block syncs below
-  float* table = table_s[warp];
-  const int b = real ? (int)(pix / N) : -1;
-
-  float a[VPL];
-  float cx = 0.0f, cy = 0.0f;
-  if (real) {
-    load_f1<VPL>(f1, pix, lane, a);
-    cx = __ldg(coords + 2 * (size_t)pix);
-    cy = __ldg(coords + 2 * (size_t)pix + 1);
-  } else {
+  for (int by = 0; by < K1; ++by) {
+    raw_t q[2][K1];
 #pragma unroll
-    for (int i = 0; i < VPL; ++i) a[i] = 0.0f;
-  }
-  float* o = out + (size_t)(real ? pix : 0) * d.n_levels * (K * K);
-
-  for (int l = 0; l < d.n_levels; ++l) {
-    const int Hl = d.H[l], Wl = d.W[l];
-    const Corner c = corner(cx, cy, l, Hl, Wl);
-    // the block's union window (corner_s alternates by level parity, so a
-    // fast warp's next level never overwrites what a slow one still reads)
-    int (*cs)[3] = corner_s[l & 1];
-    if (lane == 0) {
-      cs[warp][0] = c.x0;
-      cs[warp][1] = c.y0;
-      cs[warp][2] = b;
-    }
-    __syncthreads();
-    int xmin = cs[0][0], xmax = xmin, ymin = cs[0][1], ymax = ymin;
-    bool one = cs[0][2] >= 0;
+    for (int u = 0; u < 2; ++u) {
+      const int y = y0[u] + by;
+      const bool y_in = (y >= 0) && (y < Hl);
 #pragma unroll
-    for (int w = 1; w < NWARP; ++w) {
-      xmin = min(xmin, cs[w][0]);
-      xmax = max(xmax, cs[w][0]);
-      ymin = min(ymin, cs[w][1]);
-      ymax = max(ymax, cs[w][1]);
-      one = one && cs[w][2] == cs[0][2];
-    }
-    const int rows = ymax - ymin + K1, cols = xmax - xmin + K1;
-    const bool stage = one && rows <= SH_ROWS && cols <= SH_COLS;   // uniform in the block
-
-    if (stage) {
-      if (staged != nullptr && threadIdx.x == 0) atomicAdd(staged + l, 1);
-      const bf16* base = d.f2[l] + (size_t)b * Hl * Wl * D;
-      auto load_row = [&](int r, bf16* dst) {
-        const int y = ymin + r;
-        const bool y_in = (y >= 0) && (y < Hl);
-        for (int idx = threadIdx.x; idx < cols * CHUNKS; idx += NWARP * 32) {
-          const int col = idx / CHUNKS, piece = idx - col * CHUNKS;
-          const int x = xmin + col;
-          const bool in = y_in && (x >= 0) && (x < Wl);
-          const bf16* src = in ? base + ((size_t)y * Wl + x) * D + piece * 8 : base;
-          cp_async16(dst + col * D + piece * 8, src, in);
-        }
-        cp_async_commit();
-      };
-      load_row(0, rowbuf[0]);
-      for (int r = 0; r < rows; ++r) {
-        if (r + 1 < rows) {
-          load_row(r + 1, rowbuf[(r + 1) & 1]);
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();
-        const int by = ymin + r - c.y0;
-        if (real && by >= 0 && by < K1) {
-          const bf16* row = rowbuf[r & 1] + (c.x0 - xmin) * D;
-          raw_t q[K1];
-#pragma unroll
-          for (int ax = 0; ax < K1; ++ax)
-            q[ax] = *(reinterpret_cast<const raw_t*>(row + ax * D) + lane);
-          row_to_table<VPL>(q, a, table, by, lane);
-        }
-        __syncthreads();               // rowbuf[r & 1] is refilled with row r + 2
+      for (int ax = 0; ax < K1; ++ax) {
+        const int x = x0[u] + ax;
+        const bool in = y_in && (x >= 0) && (x < Wl);
+        q[u][ax] = in ? __ldg(reinterpret_cast<const raw_t*>(base + ((size_t)y * Wl + x) * D) +
+                              lane)
+                      : raw_t();
       }
-    } else if (real) {
-      window_table<VPL, false>(d.f2[l] + (size_t)b * Hl * Wl * D, Hl, Wl, c.x0, c.y0, a, table,
-                               lane);
     }
-    __syncwarp();
-    if (real) table_to_out(table, c.wx, c.wy, inv_sqrt_d, o + l * (K * K), lane);
-    __syncwarp();
+    row_to_table<VPL>(q[0], a[0], t0, by, lane);
+    row_to_table<VPL>(q[1], a[1], t1, by, lane);
   }
 }
 
-// ---------------------------------------------------------------------------
-// resident body
-// ---------------------------------------------------------------------------
+// Producer warp: the resident levels once, then every staged block's
+// 64-channel chunks of every tile, in the order the consumers take them.
+template <int KC>
+__device__ __forceinline__ void tc_produce(const TcParams& p, unsigned char* ring,
+                                           unsigned char* res, uint64_t* full, uint64_t* empty,
+                                           uint64_t* res_bar, int b, int t0, int t1, int lane) {
+  using namespace hopper;
+  if (p.resident != 0u && lane == 0) {
+    mbar_arrive_expect_tx(res_bar, p.res_bytes);
+    for (int l = 0; l < p.d.n_levels; ++l) {
+      if (!((p.resident >> l) & 1u)) continue;
+      const int rows = p.res_rows[l];
+      for (int kc = 0; kc < KC; ++kc)
+        for (int i = 0; i < rows; i += 8)
+          tma_load_3d(res + p.res_off[l] + ((size_t)kc * rows + i) * 128, &p.res[l], res_bar,
+                      64 * kc, i, b);
+    }
+  }
+  // lane w < NCWG feeds the ring of consumer warpgroup w: group g of a
+  // level (blocks 2g, 2g + 1) goes to warpgroup g % NCWG; a lane's units
+  // (chunks) are counted in `it` in the order that warpgroup takes them
+  int it = 0;
+  for (int tile = t0; tile < t1; ++tile) {
+    TilePix tp;
+    load_tile(p, b, tile, lane, tp);
+    for (int l = 0; l < p.d.n_levels; ++l) {
+      int x0[2], y0[2];
+      const Plan q = plan_level(p, l, tp, x0, y0);
+      if (q.kind != K_STAGED) continue;
+      const int nblk = q.nbx * q.nby;
+      if (lane < NCWG) {
+        for (int g = lane; 2 * g < nblk; g += NCWG) {
+          const int j = 2 * g, nbox = j + 1 < nblk ? 2 : 1;
+          for (int kc = 0; kc < KC; ++kc, ++it) {
+            const int stage = lane * RING + it % RING;
+            unsigned char* dst = ring + stage * STAGE_BYTES;
+            mbar_wait(empty + stage, ((it / RING) & 1) ^ 1);
+            mbar_arrive_expect_tx(full + stage, nbox * ATOM);
+            for (int u = 0; u < nbox; ++u) {
+              const int by = (j + u) / q.nbx;
+              tma_load_4d(dst + u * ATOM, &p.win[l], full + stage, 64 * kc,
+                          q.xmin + BLK * (j + u - by * q.nbx), q.ymin + BLK * by, b);
+            }
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
 
-// bytes of shared memory the resident body takes besides the levels
-constexpr size_t RES_TABLE_BYTES = (size_t)NWARP_RES * K1 * K1 * sizeof(float);
+// The tile's f1 rows as TERMS bf16 terms into A: atom (term t, chunk kc) at
+// A + (t KC + kc) ATOM, rows the tile's pixels, K-major, 128-byte swizzle;
+// masked pixels are zero.  Each float4 of a row is read once (16 bytes a
+// thread, a row's float4s on neighbouring threads).
+template <int D>
+__device__ __forceinline__ void write_a(const TcParams& p, unsigned char* A, int b, int tile,
+                                        int lt) {
+  using namespace hopper;
+  constexpr int KC = D / 64, C4 = D / 4;
+  int gx0, gy0;
+  tile_origin(p, tile, gx0, gy0);
+  constexpr int PRO = 4;  // float4 loads in flight a thread (TP * C4 / NCT in all)
+  static_assert((TP * C4 / NCT) % PRO == 0, "whole batches of loads");
+  for (int base = lt; base < TP * C4; base += NCT * PRO) {
+    float4 v[PRO];
+#pragma unroll
+    for (int u = 0; u < PRO; ++u) {
+      const int idx = base + NCT * u, r = idx / C4, c = 4 * (idx - r * C4);
+      const int gx = gx0 + (r & 7), gy = gy0 + (r >> 3);
+      v[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (gx < p.W && gy < p.H)
+        v[u] = __ldg(reinterpret_cast<const float4*>(
+            p.f1 + ((size_t)b * p.N + (size_t)gy * p.W + gx) * D + c));
+    }
+#pragma unroll
+    for (int u = 0; u < PRO; ++u) {
+      const int idx = base + NCT * u, r = idx / C4, c = 4 * (idx - r * C4);
+      float f[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+      unsigned char* dst = A + (c >> 6) * ATOM + sw128_offset(r, c & 63);
+#pragma unroll
+      for (int t = 0; t < TERMS; ++t) {
+        bf16 h[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          h[e] = __float2bfloat16_rn(f[e]);
+          f[e] -= __bfloat162float(h[e]);  // exact: what the next term carries
+        }
+        uint2 pk;
+        memcpy(&pk, h, 8);
+        *reinterpret_cast<uint2*>(dst + (size_t)t * KC * ATOM) = pk;
+      }
+    }
+  }
+}
 
-__host__ __device__ inline size_t level_bytes(const CorrDesc& d, int l, int D) {
-  return (size_t)d.H[l] * d.W[l] * D * sizeof(bf16);
+// Select: fragment entry (row m, column n) of group g into pixel m's table
+// when position n lies in m's window.  rx, ry: the corners of the thread's
+// rows m = 16 wl + lane/4 + 8 h; its columns are n = 8 j + 2 (lane % 4) + e.
+// Staged: column 64 u + 8 y + x is (x, y) of block 2 g + u, so a thread's
+// x is fixed per (u, e) and the window test on x is made once for its 8 y.
+// Resident: column n is position 128 g + n of the level in raster order.
+template <bool STAGED>
+__device__ __forceinline__ void select_group(float (&acc)[64], const Plan& q, int Wl, int P,
+                                             const int (&rx)[2], const int (&ry)[2],
+                                             float* tables, int g, int lt) {
+  hopper::fence_acc(acc);
+  const int lane = lt & 31, t4 = lane & 3, m0 = (lt >> 5) * 16 + (lane >> 2);
+  if constexpr (STAGED) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int blk = 2 * g + u, by0 = blk / q.nbx;
+      if (blk >= q.nbx * q.nby) continue;
+      const int ox = q.xmin + BLK * (blk - by0 * q.nbx), oy = q.ymin + BLK * by0;
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ax = ox + 2 * t4 + e - rx[h], d = oy - ry[h];  // window row by = y + d
+          if ((unsigned)ax >= (unsigned)K1) continue;
+          float* col = tables + (m0 + 8 * h) * (K1 * K1) + ax * K1 + d;
+#pragma unroll
+          for (int y = 0; y < BLK; ++y)
+            if ((unsigned)(y + d) < (unsigned)K1) col[y] = acc[4 * (8 * u + y) + 2 * h + e];
+        }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < GROUP / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int pos = GROUP * g + 8 * j + 2 * t4 + e;
+        const int py = pos / Wl, px = pos - py * Wl;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ax = px - rx[h], by = py - ry[h];
+          if (pos < P && (unsigned)ax < (unsigned)K1 && (unsigned)by < (unsigned)K1)
+            tables[(m0 + 8 * h) * (K1 * K1) + ax * K1 + by] = acc[4 * j + 2 * h + e];
+        }
+      }
+  }
+}
+
+// Warpgroup wg's groups of a (tile, level): g = wg, wg + NCWG, ..., so that
+// one warpgroup's selection runs under the other's products.  Group g's
+// products go into acc, one commit group a 64-channel chunk (chunks in
+// order, in each the terms in order).  Staged: the warpgroup's own ring
+// holds its chunks in order (`it` counts them); once a chunk is issued the
+// one before it is waited for and its stage freed, so the ring refills under
+// the products.  Resident: the chunk is rows [128 g, 128 g + 128) of the
+// level region's chunk kc (`rows` rows a chunk).  The selection reads acc
+// after the last wait: ptxas serializes wgmma when other instructions read
+// an accumulator while products are in flight.
+template <int KC, bool STAGED>
+__device__ __forceinline__ void level_products(const Plan& q, int Wl, int P, const unsigned char* A,
+                                               const unsigned char* src, int rows, uint64_t* full,
+                                               uint64_t* empty, int& it, const int (&rx)[2],
+                                               const int (&ry)[2], float* tables, int wg, int lt) {
+  using namespace hopper;
+  const int ngrp = STAGED ? (q.nbx * q.nby + 1) / 2 : (P + GROUP - 1) / GROUP;
+  float acc[64];
+  for (int g = wg; g < ngrp; g += NCWG) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    fence_acc(acc);
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      const unsigned char* bsrc;
+      if constexpr (STAGED) {
+        const int u = it + kc, stage = wg * RING + u % RING;
+        mbar_wait(full + stage, (u / RING) & 1);
+        bsrc = src + stage * STAGE_BYTES;
+      } else {
+        bsrc = src + ((size_t)kc * rows + GROUP * g) * 128;
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < TERMS; ++t)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          wgmma_m64n128<0, 0>(acc, sw128_desc(A + (t * KC + kc) * ATOM + 32 * k, 16, 1024),
+                              sw128_desc(bsrc + 32 * k, 16, 1024));
+      wgmma_commit();
+      if (kc > 0) {
+        wgmma_wait<1>();
+        if (STAGED && lt == 0) mbar_arrive(empty + wg * RING + (it + kc - 1) % RING);
+      }
+    }
+    wgmma_wait<0>();
+    if (STAGED) {
+      if (lt == 0) mbar_arrive(empty + wg * RING + (it + KC - 1) % RING);
+      it += KC;
+    }
+    select_group<STAGED>(acc, q, Wl, P, rx, ry, tables, g, lt);
+  }
+}
+
+// Consumer warpgroups: per tile, A; per level, the tables by the plan's
+// route, then the 81 outputs of each real pixel.  Fragment rows: warp wl of
+// either warpgroup holds pixels 16 wl .. 16 wl + 15 of each of its groups;
+// output, zeroing and the band route: consumer warp W owns pixels 8 W ..
+// 8 W + 7 and their tables.  Two barriers a level order the tables' uses.
+template <int VPL>
+__device__ __forceinline__ void tc_consume(const TcParams& p, unsigned char* A,
+                                           const unsigned char* ring, const unsigned char* res,
+                                           float* tables, uint64_t* full, uint64_t* empty,
+                                           uint64_t* res_bar, int b, int t0, int t1, int wg) {
+  using namespace hopper;
+  constexpr int D = 32 * VPL, KC = D / 64;
+  const int lt = threadIdx.x, wlt = lt & 127, wl = wlt >> 5, W = lt >> 5, lane = lt & 31;
+  const int L = p.d.n_levels;
+  float* wtab = tables + 8 * W * (K1 * K1);
+  if (p.resident != 0u) mbar_wait(res_bar, 0);
+  int it = 0;
+  for (int tile = t0; tile < t1; ++tile) {
+    TilePix tp;
+    load_tile(p, b, tile, lane, tp);
+    // the last level's barriers ordered every product of the last tile
+    // before this point: A is free
+    write_a<D>(p, A, b, tile, lt);
+    fence_async_smem();
+    named_sync(1, NCT);
+    int gx0, gy0;
+    tile_origin(p, tile, gx0, gy0);
+    for (int l = 0; l < L; ++l) {
+      const int Hl = p.d.H[l], Wl = p.d.W[l];
+      int x0[2], y0[2];
+      const Plan q = plan_level(p, l, tp, x0, y0);
+      // corners of this thread's fragment rows (slot: uniform in the warp)
+      int rx[2], ry[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * wl + (lane >> 2) + 8 * h;
+        rx[h] = __shfl_sync(FULL, (r >> 5) ? x0[1] : x0[0], r & 31);
+        ry[h] = __shfl_sync(FULL, (r >> 5) ? y0[1] : y0[0], r & 31);
+      }
+      // a staged union and the band route write every entry of a real
+      // pixel's table; a resident level writes only positions inside it,
+      // an empty level none: zeros first
+      if (q.kind == K_RESIDENT || q.kind == K_EMPTY)
+        for (int i = lane; i < 8 * K1 * K1; i += 32) wtab[i] = 0.0f;
+      named_sync(1, NCT);  // the last level's outputs have read the tables
+      if (q.kind == K_STAGED) {
+        if (lt == 0 && p.staged != nullptr) atomicAdd(p.staged + l, 1);
+        level_products<KC, true>(q, Wl, Hl * Wl, A, ring, 0, full, empty, it, rx, ry, tables,
+                                 wg, wlt);
+      } else if (q.kind == K_RESIDENT) {
+        level_products<KC, false>(q, Wl, Hl * Wl, A, res + p.res_off[l], p.res_rows[l], full,
+                                  empty, it, rx, ry, tables, wg, wlt);
+      } else if (q.kind == K_CORE) {
+        const bf16* base = p.d.f2[l] + (size_t)b * Hl * Wl * D;
+        for (int i = 0; i < 8; i += 2) {
+          float a[2][VPL];
+          int cx0[2], cy0[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int r = 8 * W + i + u, gx = gx0 + (r & 7), gy = gy0 + (r >> 3);
+            cx0[u] = cy0[u] = -(1 << 20);
+#pragma unroll
+            for (int e = 0; e < VPL; ++e) a[u][e] = 0.0f;
+            if (gx < p.W && gy < p.H) {
+              const long long pix = (long long)b * p.N + (long long)gy * p.W + gx;
+              load_f1<VPL>(p.f1, pix, lane, a[u]);
+              const Corner c = corner(__ldg(p.coords + 2 * pix), __ldg(p.coords + 2 * pix + 1),
+                                      l, Hl, Wl);
+              cx0[u] = c.x0;
+              cy0[u] = c.y0;
+            }
+          }
+          window_table2<VPL>(base, Hl, Wl, cx0, cy0, a, wtab + i * (K1 * K1),
+                             wtab + (i + 1) * (K1 * K1), lane);
+        }
+      }
+      named_sync(1, NCT);  // every table of the tile is whole
+      // the 81 outputs of each of the warp's real pixels; lane i (and
+      // i + 8, ...) holds the bilinear weights of pixel 8 W + i
+      const int mine = 8 * (W & 3) + (lane & 7);
+      const Corner mc = corner(__shfl_sync(FULL, (W >> 2) ? tp.cx[1] : tp.cx[0], mine),
+                               __shfl_sync(FULL, (W >> 2) ? tp.cy[1] : tp.cy[0], mine), l,
+                               Hl, Wl);
+#pragma unroll 4
+      for (int i = 0; i < 8; ++i) {
+        const int r = 8 * W + i, gx = gx0 + (r & 7), gy = gy0 + (r >> 3);
+        const float wx = __shfl_sync(FULL, mc.wx, i), wy = __shfl_sync(FULL, mc.wy, i);
+        if (gx >= p.W || gy >= p.H) continue;
+        const size_t pix = (size_t)b * p.N + (size_t)gy * p.W + gx;
+        table_to_out(wtab + i * (K1 * K1), wx, wy, p.inv_sqrt_d,
+                     p.out + pix * L * (K * K) + l * (K * K), lane);
+      }
+    }
+  }
 }
 
 template <int VPL>
-__global__ void __launch_bounds__(NWARP_RES * 32, 1)
-corr_lookup_resident_kernel(const CorrDesc d, const float* __restrict__ f1,
-                            const float* __restrict__ coords, float* __restrict__ out, int N,
-                            float inv_sqrt_d, unsigned resident, int tile_px) {
-  constexpr int D = 32 * VPL;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.y;
-  float* table = reinterpret_cast<float*>(smem) + warp * (K1 * K1);
-
-  // the resident levels of batch element b, whole, one after the other
-  const bf16* lvl_s[CORR_MAX_LEVELS];
-  size_t off = RES_TABLE_BYTES;
-  for (int l = 0; l < d.n_levels; ++l) {
-    lvl_s[l] = nullptr;
-    if (!((resident >> l) & 1u)) continue;
-    bf16* dst = reinterpret_cast<bf16*>(smem + off);
-    const size_t n16 = level_bytes(d, l, D) / 16;
-    const unsigned char* src =
-        reinterpret_cast<const unsigned char*>(d.f2[l] + (size_t)b * d.H[l] * d.W[l] * D);
-    for (size_t i = threadIdx.x; i < n16; i += NWARP_RES * 32)
-      cp_async16(reinterpret_cast<unsigned char*>(dst) + 16 * i, src + 16 * i, true);
-    lvl_s[l] = dst;
-    off += level_bytes(d, l, D);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int p0 = blockIdx.x * tile_px;
-  const int p1 = min(N, p0 + tile_px);
-  for (int p = p0 + warp; p < p1; p += NWARP_RES) {
-    const long long pix = (long long)b * N + p;
-    float a[VPL];
-    load_f1<VPL>(f1, pix, lane, a);
-    const float cx = __ldg(coords + 2 * (size_t)pix);
-    const float cy = __ldg(coords + 2 * (size_t)pix + 1);
-    float* o = out + (size_t)pix * d.n_levels * (K * K);
-    for (int l = 0; l < d.n_levels; ++l) {
-      const int Hl = d.H[l], Wl = d.W[l];
-      const Corner c = corner(cx, cy, l, Hl, Wl);
-      if (lvl_s[l] != nullptr)
-        window_table<VPL, true>(lvl_s[l], Hl, Wl, c.x0, c.y0, a, table, lane);
-      else
-        window_table<VPL, false>(d.f2[l] + (size_t)b * Hl * Wl * D, Hl, Wl, c.x0, c.y0, a,
-                                 table, lane);
-      __syncwarp();
-      table_to_out(table, c.wx, c.wy, inv_sqrt_d, o + l * (K * K), lane);
-      __syncwarp();
+__global__ void __launch_bounds__(TC_THREADS, 1)
+corr_lookup_tc_kernel(const __grid_constant__ TcParams p) {
+  using namespace hopper;
+  constexpr int D = 32 * VPL, KC = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* A = smem;
+  unsigned char* ring = A + tc_a_bytes(D);
+  unsigned char* res = ring + TC_STAGES * STAGE_BYTES;
+  float* tables = reinterpret_cast<float*>(res + p.res_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(res + p.res_bytes + TC_TABLES);
+  uint64_t* empty = full + TC_STAGES;
+  uint64_t* res_bar = empty + TC_STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TC_STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 1);
     }
+    mbar_init(res_bar, 1);
+    fence_barrier_init();
   }
+  __syncthreads();
+  const int b = blockIdx.y, t0 = blockIdx.x * p.tiles_per_block;
+  const int t1 = min(p.ntiles, t0 + p.tiles_per_block);
+  const int wg = warpgroup_index();
+  if (wg == NCWG) {
+    tc_produce<KC>(p, ring, res, full, empty, res_bar, b, t0, t1, threadIdx.x & 31);
+    return;
+  }
+  tc_consume<VPL>(p, A, ring, res, tables, full, empty, res_bar, b, t0, t1, wg);
 }
 
 // ---------------------------------------------------------------------------
@@ -483,37 +807,90 @@ corr_lookup_resident_kernel(const CorrDesc d, const float* __restrict__ f1,
 
 enum Body { BAND = 0, SHARED = 1, RESIDENT = 2 };
 
+int smem_optin(int* optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (int)err;
+}
+
+// the shared or resident body (D >= 64)
+template <int VPL>
+int launch_tc(int body, const CorrDesc& d, const float* f1, const float* coords, float* out,
+              int B, int N, unsigned resident, int tiles_per_block, int* staged,
+              cudaStream_t stream) {
+  constexpr int D = 32 * VPL;
+  if ((long long)d.H[0] * d.W[0] != N || tiles_per_block < 1 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  TcParams* tp = new TcParams;
+  memset(tp, 0, sizeof(TcParams));
+  tp->d = d;
+  tp->f1 = f1;
+  tp->coords = coords;
+  tp->out = out;
+  tp->staged = staged;
+  tp->N = N;
+  tp->H = d.H[0];
+  tp->W = d.W[0];
+  tp->tiles_x = (tp->W + TILE - 1) / TILE;
+  tp->ntiles = tp->tiles_x * ((tp->H + TILE - 1) / TILE);
+  tp->tiles_per_block = tiles_per_block;
+  tp->inv_sqrt_d = 1.0f / sqrtf((float)D);
+  if (body != RESIDENT) resident = 0u;
+  bool ok = true;
+  size_t res_bytes = 0;
+  for (int l = 0; l < d.n_levels && ok; ++l) {
+    const int Hl = d.H[l], Wl = d.W[l];
+    if (Hl < 1 || Wl < 1) {  // an empty level: no map, no products, zeros out
+      resident &= ~(1u << l);
+      continue;
+    }
+    const uint64_t P = (uint64_t)Hl * Wl;
+    ok = hopper::make_map_nd<4>(&tp->win[l], d.f2[l], {(uint64_t)D, (uint64_t)Wl, (uint64_t)Hl,
+                                                       (uint64_t)B},
+                                {(uint64_t)D * 2, (uint64_t)Wl * D * 2, P * D * 2},
+                                {64u, (uint32_t)BLK, (uint32_t)BLK, 1u});
+    if (ok && ((resident >> l) & 1u)) {
+      tp->res_rows[l] = (int)((P + 7) / 8 * 8);
+      tp->res_off[l] = (unsigned)res_bytes;
+      res_bytes += (size_t)tp->res_rows[l] * D * 2;
+      ok = hopper::make_map_nd<3>(&tp->res[l], d.f2[l], {(uint64_t)D, P, (uint64_t)B},
+                                  {(uint64_t)D * 2, P * D * 2}, {64u, 8u, 1u});
+    }
+  }
+  tp->resident = resident;
+  tp->res_bytes = (unsigned)res_bytes;
+  const size_t bytes = tc_fixed_bytes(D) + res_bytes;
+  int optin = 0;
+  int err = ok ? smem_optin(&optin) : (int)cudaErrorInvalidValue;
+  if (err == 0 && bytes > (size_t)optin) err = (int)cudaErrorInvalidValue;
+  if (err == 0)
+    err = (int)cudaFuncSetAttribute(corr_lookup_tc_kernel<VPL>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == 0) {
+    const dim3 grid((unsigned)((tp->ntiles + tiles_per_block - 1) / tiles_per_block),
+                    (unsigned)B);
+    corr_lookup_tc_kernel<VPL><<<grid, TC_THREADS, bytes, stream>>>(*tp);
+    err = (int)cudaGetLastError();
+  }
+  delete tp;
+  return err;
+}
+
 template <int VPL>
 int launch(int body, const CorrDesc& d, const float* f1, const float* coords, float* out, int B,
-           int N, unsigned resident, int tile_px, int* staged, cudaStream_t stream) {
-  constexpr int D = 32 * VPL;
-  const long long total = (long long)B * N;
-  const float inv_sqrt_d = 1.0f / sqrtf((float)D);
-  if (body == RESIDENT) {
-    size_t bytes = RES_TABLE_BYTES;
-    for (int l = 0; l < d.n_levels; ++l)
-      if ((resident >> l) & 1u) bytes += level_bytes(d, l, D);
-    int dev = 0, optin = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return (int)err;
-    if (bytes > (size_t)optin) return (int)cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(corr_lookup_resident_kernel<VPL>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned)((N + tile_px - 1) / tile_px), (unsigned)B);
-    corr_lookup_resident_kernel<VPL><<<grid, NWARP_RES * 32, bytes, stream>>>(
-        d, f1, coords, out, N, inv_sqrt_d, resident, tile_px);
-    return (int)cudaGetLastError();
+           int N, unsigned resident, int tiles_per_block, int* staged, cudaStream_t stream) {
+  if constexpr (VPL >= 2) {
+    if (body != BAND)
+      return launch_tc<VPL>(body, d, f1, coords, out, B, N, resident, tiles_per_block, staged,
+                            stream);
   }
+  const long long total = (long long)B * N;
+  const float inv_sqrt_d = 1.0f / sqrtf((float)(32 * VPL));
   const unsigned grid = (unsigned)((total + NWARP - 1) / NWARP);
-  if (body == SHARED)
-    corr_lookup_shared_kernel<VPL><<<grid, NWARP * 32, 0, stream>>>(d, f1, coords, out, total, N,
-                                                                     inv_sqrt_d, staged);
-  else
-    corr_lookup_kernel<VPL><<<grid, NWARP * 32, 0, stream>>>(d, f1, coords, out, total, N,
-                                                             inv_sqrt_d);
+  corr_lookup_kernel<VPL><<<grid, NWARP * 32, 0, stream>>>(d, f1, coords, out, total, N,
+                                                           inv_sqrt_d);
   return (int)cudaGetLastError();
 }
 
@@ -521,37 +898,53 @@ int launch(int body, const CorrDesc& d, const float* f1, const float* coords, fl
 
 extern "C" {
 
-// Bytes of a block's dynamic shared memory the resident body can give to
-// levels on the current device (the opt-in maximum less its tables); < 0 on
-// a CUDA error.
+// Bytes of a block's shared memory the resident body can give to levels on
+// the current device: the opt-in maximum less what its kernel takes besides
+// them at D = 256 (smaller D leave more; the caller's rule uses this bound);
+// < 0 on a CUDA error.
 long long corr_resident_capacity(void) {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return -1;
-  return (long long)optin - (long long)RES_TABLE_BYTES;
+  int optin = 0;
+  if (smem_optin(&optin) != 0) return -1;
+  return (long long)optin - (long long)tc_fixed_bytes(256);
+}
+
+// Registers, local (spill) bytes a thread and shared memory of a launch of
+// the tensor-core kernel at D (64, 128 or 256), resident levels not counted.
+int corr_tc_kernel_attrs(int D, int* regs, int* local_bytes, int* smem_bytes) {
+  const void* fn = D == 64 ? (const void*)corr_lookup_tc_kernel<2>
+                   : D == 128 ? (const void*)corr_lookup_tc_kernel<4>
+                   : D == 256 ? (const void*)corr_lookup_tc_kernel<8> : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  *smem_bytes = (int)(tc_fixed_bytes(D) + a.sharedSizeBytes);
+  return 0;
 }
 
 // f1 (B, N, D) f32, coords (B, N, 2) f32, out (B, N, n_levels * 81) f32, the
-// levels as CorrDesc says; D in {32, 64, 128, 256}, radius 4.  body: 0 band,
-// 1 shared (staged: NULL or n_levels ints, each counting the blocks that
-// staged their union window at that level), 2 resident (bit l of `resident`
-// keeps level l in shared memory; a block covers `tile_px` pixels of one
-// batch element).
+// levels as CorrDesc says (level 0 is the H x W grid, N = H W); D in {32,
+// 64, 128, 256}, radius 4.  body: 0 band; 1 shared (staged: NULL or
+// n_levels ints, each counting the 8 x 8 tiles whose union window staged at
+// that level); 2 resident (bit l of `resident` keeps level l, whose bf16
+// positions rounded up to 8 take H_l W_l D 2 bytes or a little more, in
+// shared memory).  For bodies 1 and 2 a block walks `tiles_per_block`
+// consecutive tiles of one batch element; at D = 32 they take the band body.
 int corr_lookup(const CorrDesc* d, const float* f1, const float* coords, float* out, int B, int N,
-                int D, int radius, int body, unsigned resident, int tile_px, int* staged,
+                int D, int radius, int body, unsigned resident, int tiles_per_block, int* staged,
                 void* stream) {
   if (!d || d->n_levels < 1 || d->n_levels > CORR_MAX_LEVELS || radius != R || B < 1 || N < 1)
     return (int)cudaErrorInvalidValue;
-  if (body < BAND || body > RESIDENT || (body == RESIDENT && (tile_px < 1 || B > 65535)))
-    return (int)cudaErrorInvalidValue;
+  if (body < BAND || body > RESIDENT) return (int)cudaErrorInvalidValue;
   if (((long long)B * N + NWARP - 1) / NWARP > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
-    case 32: return launch<1>(body, *d, f1, coords, out, B, N, resident, tile_px, staged, s);
-    case 64: return launch<2>(body, *d, f1, coords, out, B, N, resident, tile_px, staged, s);
-    case 128: return launch<4>(body, *d, f1, coords, out, B, N, resident, tile_px, staged, s);
-    case 256: return launch<8>(body, *d, f1, coords, out, B, N, resident, tile_px, staged, s);
+    case 32: return launch<1>(body, *d, f1, coords, out, B, N, resident, tiles_per_block, staged, s);
+    case 64: return launch<2>(body, *d, f1, coords, out, B, N, resident, tiles_per_block, staged, s);
+    case 128: return launch<4>(body, *d, f1, coords, out, B, N, resident, tiles_per_block, staged, s);
+    case 256: return launch<8>(body, *d, f1, coords, out, B, N, resident, tiles_per_block, staged, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,12 +1,14 @@
-// Hopper (sm_90a) building blocks of the IMLP chain's kernels: mbarriers,
-// TMA loads and stores of tiled tensor maps, and wgmma with shared-memory
-// matrix descriptors.  Layouts and encodings: PTX ISA,
+// Hopper (sm_90a) building blocks of the IMLP chain's and the correlation
+// lookup's kernels: mbarriers, TMA loads and stores of tiled tensor maps,
+// wgmma with shared-memory matrix descriptors, and on the host the encoding
+// of bf16 tensor maps.  Layouts and encodings: PTX ISA,
 // "Asynchronous Warpgroup Level Matrix Multiply-Accumulate" (matrix
 // descriptor, register fragments) and "Tensor Memory Accelerator".
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, libcuda is not linked
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -66,6 +68,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(smem_addr(dst)), "l"((uint64_t)map), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// one box of a 4-D tiled tensor map (coordinates innermost first)
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"((uint64_t)map), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3)
       : "memory");
 }
 
@@ -158,9 +171,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Pins the accumulator registers at this point of the program: placed after
 // wgmma_wait, no read of d is scheduled before the products have landed.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 // d (64 x 128 f32, the warpgroup's fragments) += A (64 x 16) · B (16 x 128),
@@ -183,6 +197,64 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
+}
+
+// ---- host: tensor maps -----------------------------------------------------
+
+// cuTensorMapEncodeTiled looked up through the runtime: the libraries link
+// only the runtime
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
+                                         &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiledFn)f;
+  }
+  return fn;
+}
+
+// bf16 map of RANK dimensions (innermost first): dims, the byte strides of
+// dimensions 1..RANK-1 and the box; 128-byte swizzle, elements outside the
+// tensor (negative coordinates too) read as zero
+template <int RANK>
+inline bool make_map_nd(CUtensorMap* m, const void* base, const uint64_t (&dims)[RANK],
+                        const uint64_t (&strides)[RANK - 1], const uint32_t (&box)[RANK]) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || ((uintptr_t)base & 15)) return false;
+  cuuint64_t d[RANK], s[RANK - 1];
+  cuuint32_t b[RANK], e[RANK];
+  for (int i = 0; i < RANK; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    e[i] = 1;
+    if (i + 1 < RANK) {
+      if (strides[i] & 15) return false;
+      s[i] = strides[i];
+    }
+  }
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, RANK, const_cast<void*>(base), d, s, b, e,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the chain's (columns, rows, videos) map
+inline bool make_map(CUtensorMap* m, const void* base, int cols, int rows, int V, size_t row_bytes,
+                     size_t video_bytes, int box_cols, int box_rows) {
+  return make_map_nd<3>(m, base, {(uint64_t)cols, (uint64_t)rows, (uint64_t)V},
+                        {(uint64_t)row_bytes, (uint64_t)video_bytes},
+                        {(uint32_t)box_cols, (uint32_t)box_rows, 1u});
 }
 
 }  // namespace hopper

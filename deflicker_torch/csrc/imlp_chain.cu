@@ -184,9 +184,7 @@ __host__ __device__ inline size_t stash_offsets(const ChainDesc& d, int B, size_
 
 __device__ __forceinline__ float relu_keep_nan(float v) { return (v < 0.0f) ? 0.0f : v; }
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024u - (hopper::smem_addr(p) & 1023u)) & 1023u);
-}
+using hopper::align1024;
 
 __host__ __device__ __forceinline__ int kept_width(const ChainDesc& d, int i) {
   return i == 0 ? d.E : d.out_dim[i - 1];
@@ -1212,40 +1210,7 @@ int check_desc(const ChainDesc* d, int B, int V) {
   return 0;
 }
 
-// cuTensorMapEncodeTiled looked up through the runtime: the library links
-// only the runtime
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
-                                         &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = (EncodeTiledFn)f;
-  }
-  return fn;
-}
-
-// bf16 (columns, rows, videos) map, 128-byte swizzle, zero outside the tensor
-bool make_map(CUtensorMap* m, const void* base, int cols, int rows, int V, size_t row_bytes,
-              size_t video_bytes, int box_cols, int box_rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr || ((uintptr_t)base & 15) || (row_bytes & 15) || (video_bytes & 15))
-    return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)V};
-  const cuuint64_t strides[2] = {(cuuint64_t)row_bytes, (cuuint64_t)video_bytes};
-  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+using hopper::make_map;
 
 // forward launch over V videos, with (STASH) or without a caller-owned stash
 // (video v's at stash + v * stash_vs elements)

@@ -2,28 +2,37 @@
 
 The CUDA source is `deflicker_torch/csrc/corr_lookup.cu` (its header says
 which TPU kernels it replaces, its bound and its design).  It holds one
-function under three memory schedules ("bodies"): "band" (the default),
-"shared" (a block stages the union window of its 8 pixels in shared memory
-when the windows cluster) and "resident" (small levels held whole in shared
-memory).  This module:
+function under three memory schedules ("bodies"): "band" (the default: a
+warp per pixel on the CUDA cores, windows read from global memory), and
+"shared" and "resident", one kernel whose window products run as wgmma on
+the tensor cores over 8 x 8 pixel tiles, with f1 split into two bf16 terms
+(bf16 f2 times each term is exact in f32) and f2's windows staged by TMA.  "shared" stages
+each tile's union window when it fits the envelope (`tile_plan` mirrors the
+rule) and sends the other tiles through the band body's route inside the
+same launch; "resident" also holds small levels whole in shared memory and
+multiplies each tile with all their positions.  At D = 32 both take the
+band body.  This module:
 
   * `corr_lookup_cuda` checks its tensors, allocates the output with
     `torch.empty`, launches the chosen body on the current stream of the
     tensors' card with that card current, without synchronising, raises on
-    a non-zero `cudaGetLastError()`, and counts
-    lookups in `launches["lookup"]`, `["lookup_shared"]` or
-    `["lookup_resident"]` (one per call: the four levels are one launch);
+    a non-zero return (a failed launch, tensor map or shared-memory
+    set-up), and counts lookups in `launches["lookup"]`,
+    `["lookup_shared"]` or `["lookup_resident"]` (one per call: the four
+    levels are one launch);
   * `select_body` reads the JAX package's switches (DEFLICKER_CORR_SHARED,
     DEFLICKER_CORR_RESIDENT; the shared body wins, as in
     `corr_lookup_pallas`), and `resident_levels` picks the levels the
     resident body keeps in shared memory (DEFLICKER_CORR_RESIDENT_MAX_MB
-    gates a level's bytes per batch element, capped by what a block's
-    shared memory holds);
+    gates a level's bytes per batch element, capped by what the kernel
+    leaves of a block's shared memory);
   * `corr_lookup_plain` is the same function in plain PyTorch, by gathers in
     pixel chunks: f2 is read from whatever dtype the pyramid is stored in
     (bf16 for the kernel's twin, f32 for the online mode of models/raft.py)
     and every product and sum is f32.  It is the twin of all three bodies
-    (they compute one function).  CPU tests and the on-card comparison use
+    (they compute one function; the tensor-core bodies sum each dot in
+    another order than the band body, so they agree with it to f32
+    rounding, not bit for bit).  CPU tests and the on-card comparison use
     it; nothing on the main path does when the tensors are on the card.
 
 Both compute, for pixel p, level l and c = coords[p] / 2^l (clamped to
@@ -54,6 +63,13 @@ BODIES = ("band", "shared", "resident")
 _BODY_CODE = {"band": 0, "shared": 1, "resident": 2}
 _COUNTER = {"band": "lookup", "shared": "lookup_shared",
             "resident": "lookup_resident"}
+
+# the tensor-core bodies' tiles (TILE x TILE pixels) and staging envelope:
+# a (tile, level) stages when its union window spans at most ENVELOPE blocks
+# of BLOCK positions a side (csrc/corr_lookup.cu: TILE, BLK, ENV)
+TILE = 8
+BLOCK = 8
+ENVELOPE = 4
 
 # lookups launched by `corr_lookup_cuda`, by body (one kernel launch per call)
 launches = {"lookup": 0, "lookup_shared": 0, "lookup_resident": 0}
@@ -87,14 +103,15 @@ def resident_levels(level_shapes: Sequence[Tuple[int, int]], D: int,
                     capacity: int, gate: Optional[int] = None
                     ) -> Tuple[int, ...]:
     """The levels the resident body holds in shared memory: from the
-    coarsest up, each level whose bf16 bytes per batch element (H_l W_l D 2)
-    pass `gate` (when given) while the kept levels' sum fits `capacity`.
-    The others take the band body's loads inside the same launch."""
+    coarsest up, each level whose bf16 bytes per batch element (its H_l W_l
+    positions rounded up to 8, times D 2, as the kernel lays them out) pass
+    `gate` (when given) while the kept levels' sum fits `capacity`.  The
+    others take the shared body's route inside the same launch."""
     kept, used = [], 0
     limit = capacity if gate is None else min(gate, capacity)
     for l in reversed(range(len(level_shapes))):
         hl, wl = level_shapes[l]
-        nbytes = hl * wl * D * 2
+        nbytes = -(-hl * wl // 8) * 8 * D * 2
         if 0 < nbytes <= limit and used + nbytes <= capacity:
             kept.append(l)
             used += nbytes
@@ -106,6 +123,39 @@ def _level_sizes(H: int, W: int, n: int):
     for _ in range(n - 1):
         sizes.append((sizes[-1][0] // 2, sizes[-1][1] // 2))
     return sizes
+
+
+def tile_plan(coords: torch.Tensor, level_shapes: Sequence[Tuple[int, int]],
+              radius: int = KERNEL_RADIUS) -> torch.Tensor:
+    """Which (level, batch element, tile) the shared body stages: the mirror
+    of the kernel's `plan_level`.  coords (B, H, W, 2) -> bool (L, B,
+    ceil(H/8), ceil(W/8)): the 8 x 8 tile's union window at level l, from
+    the min to the max of its real pixels' window corners plus 2r+2, spans
+    at most ENVELOPE blocks of BLOCK positions in x and in y, and the level
+    is not empty.  The corners are computed as the kernel computes them
+    (f32, a power-of-two scale, the same clamp)."""
+    B, H, W, _ = coords.shape
+    ty, tx = -(-H // TILE), -(-W // TILE)
+    pad = (0, 0, 0, tx * TILE - W, 0, ty * TILE - H)
+    c = torch.nn.functional.pad(coords.float(), pad)
+    real = torch.nn.functional.pad(torch.ones((B, H, W), dtype=torch.bool,
+                                              device=coords.device),
+                                   pad[2:], value=False)
+    real = real.reshape(B, ty, TILE, tx, TILE)
+    big = 1 << 30
+    K1 = 2 * radius + 2
+    out = []
+    for l, (hl, wl) in enumerate(level_shapes):
+        lx = (c[..., 0] / 2.0 ** l).clamp(-(radius + 2.0), wl - 1.0 + radius + 2.0)
+        ly = (c[..., 1] / 2.0 ** l).clamp(-(radius + 2.0), hl - 1.0 + radius + 2.0)
+        fits = []
+        for v in (lx, ly):
+            x0 = (torch.floor(v).long() - radius).reshape(B, ty, TILE, tx, TILE)
+            lo = torch.where(real, x0, big).amin(dim=(2, 4))
+            hi = torch.where(real, x0, -big).amax(dim=(2, 4))
+            fits.append(-(-(hi - lo + K1) // BLOCK) <= ENVELOPE)
+        out.append(fits[0] & fits[1] & (hl > 0 and wl > 0))
+    return torch.stack(out)
 
 
 def _check_shapes(fmap1, pyramid, coords) -> None:
@@ -195,24 +245,45 @@ def _library():
         lib.corr_lookup.restype = I
         lib.corr_resident_capacity.argtypes = []
         lib.corr_resident_capacity.restype = ctypes.c_longlong
+        lib.corr_tc_kernel_attrs.argtypes = [I, P, P, P]
+        lib.corr_tc_kernel_attrs.restype = I
         lib._deflicker_typed = True
     return lib
 
 
 def resident_capacity() -> int:
     """Bytes of a block's shared memory the resident body can give to
-    levels on the current CUDA device."""
+    levels on the current CUDA device: the opt-in maximum less what the
+    kernel takes besides them at D = 256 (A's two f1 terms, the TMA rings,
+    the tables), the most it takes at any D."""
     cap = _library().corr_resident_capacity()
     if cap < 0:
         raise RuntimeError("corr_resident_capacity failed: no CUDA device")
     return int(cap)
 
 
-def _resident_tile(B: int, N: int, device) -> int:
-    """Pixels a resident block covers: about one wave of one block per SM."""
+def kernel_attrs() -> dict:
+    """{D: (registers, local bytes a thread, shared bytes a launch)} of the
+    tensor-core kernel (the shared and resident bodies; resident levels not
+    counted) in the built library."""
+    lib = _library()
+    out = {}
+    for D in KERNEL_DIMS[1:]:
+        regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        err = lib.corr_tc_kernel_attrs(D, ctypes.byref(regs), ctypes.byref(local),
+                                       ctypes.byref(smem))
+        if err != 0:
+            raise RuntimeError(f"corr_tc_kernel_attrs failed: CUDA error {err}")
+        out[D] = (regs.value, local.value, smem.value)
+    return out
+
+
+def _tiles_per_block(B: int, H: int, W: int, device) -> int:
+    """Tiles a tensor-core block walks (all of one batch element): the
+    blocks of all B elements about one wave of one block per SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = max(1, sms // B)
-    return -(-N // tiles)
+    ntiles = -(-H // TILE) * -(-W // TILE)
+    return -(-ntiles // max(1, sms // B))
 
 
 def corr_lookup_cuda(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
@@ -224,7 +295,8 @@ def corr_lookup_cuda(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
     on one CUDA device -> (B, H, W, L*81) f32.  D in {32, 64, 128, 256},
     radius 4.  `body` is one of BODIES; for "shared", `staged` may be an
     int32 tensor of L zeros on the device, to which the kernel adds the
-    number of blocks that staged their union window at each level."""
+    number of 8 x 8 tiles that staged their union window at each level
+    (`tile_plan` predicts it; at D = 32, where the band body runs, none)."""
     if not fmap1.is_cuda:
         raise ValueError("the CUDA correlation kernel needs CUDA tensors")
     if body not in BODIES:
@@ -258,7 +330,7 @@ def corr_lookup_cuda(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
     if B * H * W == 0:
         return out
     lib = _library()
-    mask, tile = 0, 1
+    mask, tiles = 0, 1
     # the card of the tensors current: the capacity query, the kernel's
     # attributes and the launch all act on the current device
     with torch.cuda.device(fmap1.device):
@@ -266,10 +338,11 @@ def corr_lookup_cuda(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
             keep = resident_levels([tuple(lvl.shape[1:3]) for lvl in fmap2_pyramid],
                                    D, resident_capacity(), resident_gate_bytes())
             mask = sum(1 << l for l in keep)
-            tile = _resident_tile(B, H * W, fmap1.device)
+        if body != "band":
+            tiles = _tiles_per_block(B, H, W, fmap1.device)
         err = lib.corr_lookup(
             ctypes.byref(d), fmap1.data_ptr(), coords.data_ptr(), out.data_ptr(),
-            B, H * W, D, radius, _BODY_CODE[body], mask, tile,
+            B, H * W, D, radius, _BODY_CODE[body], mask, tiles,
             staged.data_ptr() if staged is not None else None,
             torch.cuda.current_stream(fmap1.device).cuda_stream)
     if err != 0:

@@ -38,7 +38,8 @@ def test_library_path_changes_with_an_included_header(tmp_path, monkeypatch):
 def test_shipped_sources_and_their_headers():
     assert [p.name for p in build.sources("imlp_chain")] == ["imlp_chain.cu",
                                                               "hopper.cuh"]
-    assert [p.name for p in build.sources("corr_lookup")] == ["corr_lookup.cu"]
+    assert [p.name for p in build.sources("corr_lookup")] == ["corr_lookup.cu",
+                                                               "hopper.cuh"]
 
 
 def test_package_data_ships_every_source_and_header():

@@ -8,8 +8,8 @@ tests/test_pallas_corr.py sets them) run in interpret mode over a
 bf16-stored pyramid; `corr_lookup_plain` reads the same bf16-rounded levels.
 Both multiply them by f32 f1 with f32 sums, so rtol = atol = 1e-4 (the bound
 tests/test_pallas_corr.py holds both bodies to against the materialized
-lookup).  The CUDA bodies are held to the same twin, and to the band
-kernel bit for bit, in tests/test_torch_cuda.py."""
+lookup).  The CUDA bodies are held to the same twin in
+tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -100,10 +100,11 @@ def test_body_selection(shared, resident, body, monkeypatch):
 
 
 def test_resident_levels_gate_and_capacity(monkeypatch):
-    """At the flow engine's 54x96 grid, D = 256: levels 2 (160 KB) and 3
-    (37 KB) fit an H100 block's 227 KB together, levels 0 (2.65 MB) and 1
-    (664 KB) do not; DEFLICKER_CORR_RESIDENT_MAX_MB gates each level's bytes
-    below that; empty levels are never resident."""
+    """At the flow engine's 54x96 grid, D = 256, with 226,048 bytes to
+    give: levels 2 (160 KB) and 3 (37 KB) fit together, levels 0 (2.65 MB)
+    and 1 (664 KB) do not; DEFLICKER_CORR_RESIDENT_MAX_MB gates each level's
+    bytes below that; empty levels are never resident.  (The kernel's own
+    capacity is held in tests/test_torch_cuda.py.)"""
     shapes = [(54, 96), (27, 48), (13, 24), (6, 12)]
     cap = 232_448 - 16 * 100 * 4
     monkeypatch.delenv("DEFLICKER_CORR_RESIDENT_MAX_MB", raising=False)

@@ -1,5 +1,6 @@
 """The port stands alone: no JAX and nothing of the JAX package in
-`deflicker_torch` or `chip_smoke.py`, and no silent CPU fallback."""
+`deflicker_torch`, `chip_smoke.py` or the port's `tools/`, and no silent
+CPU fallback."""
 
 import ast
 import os
@@ -18,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deflicker_tpu")
 
 
 def _port_sources():
-    return sorted((ROOT / "deflicker_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "deflicker_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("*.py")))
 
 
 def test_no_forbidden_imports_in_sources():
