@@ -14,9 +14,11 @@ Phases (any failure exits non-zero before the result line):
      mapping2 at 90,000 rows, atlas at 60,000, the one-output alpha at
      50,000) for the stash pair, whose gradients must also equal the remat
      pair's bit for bit; the flow engine's lookup (8 x 54 x 96 pixels,
-     D = 256, four levels, flows of +-3 and +-40 px, and a ragged 7 x 9,
-     D = 32 case) for the correlation kernel — held against its plain
-     PyTorch twin, then timed beside its bound, the plain twin and, where
+     D = 256, four levels, flows of +-3, +-0.5 and +-40 px, and a ragged
+     7 x 9, D = 32 case) for the band body of the correlation kernel (each
+     window one mma.sync product), two calls bit-equal — held against its
+     plain PyTorch twin, then timed beside its bound (and the window bytes
+     it reads), the plain twin and, where
      one PyTorch call computes the same function, that call; each backward
      also piece by piece (recompute, reverse pass, dW GEMM, reduction; the
      recompute at the dual fit's shapes too);
@@ -53,7 +55,7 @@ Phases (any failure exits non-zero before the result line):
      tensor-core kernel over 8 x 8 pixel tiles, the shared body (each tile's
      union window staged by TMA) and the resident body (level 3 held whole
      in shared memory) against the plain twin and the band body, two calls
-     bit-equal, shared and resident bit-equal at +-0.5, every tile staged
+     bit-equal, shared and resident bit-equal at every spread, every tile staged
      at +-0.5 and +-3; timed beside the band body, with the share of staged
      tiles (counted and predicted) and the resident levels;
  10. the chain kernels with a video axis, V = 3 at the single fit's shapes,
@@ -299,10 +301,10 @@ def print_build(logs: dict) -> None:
               f"a thread, {smem} shared bytes a block", flush=True)
     from deflicker_torch.ops.cuda import corr_kernel
 
-    for D, (regs, local, smem) in corr_kernel.kernel_attrs().items():
-        print(f"[build] corr_lookup corr_lookup_tc_kernel D={D}: {regs} registers, "
-              f"{local} local bytes a thread, {smem} shared bytes a block besides "
-              "resident levels", flush=True)
+    for (kname, D), (regs, local, smem) in corr_kernel.kernel_attrs().items():
+        extra = " besides resident levels" if kname == "corr_lookup_tc_kernel" else ""
+        print(f"[build] corr_lookup {kname} D={D}: {regs} registers, {local} local "
+              f"bytes a thread, {smem} shared bytes a block{extra}", flush=True)
 
 
 def phase_chain_kernels(device) -> dict:
@@ -545,9 +547,10 @@ def phase_stash_kernels(device) -> dict:
 
 # (name, B, H, W, D, flow spread in 1/8-resolution pixels): the flow engine's
 # lookup for the clip (pair_batch 4 x 2 directions, 432x768 / 8) with windows
-# mostly inside the levels, the same with windows partly and wholly outside,
-# and a ragged case whose last level is empty
+# mostly inside the levels (+-3, +-0.5), the same with windows partly and
+# wholly outside, and a ragged case whose last level is empty
 CORR_CASES = (("engine+-3", 2 * PAIR_BATCH, CLIP[1] // 8, CLIP[2] // 8, 256, 3.0),
+              ("engine+-0.5", 2 * PAIR_BATCH, CLIP[1] // 8, CLIP[2] // 8, 256, 0.5),
               ("engine+-40", 2 * PAIR_BATCH, CLIP[1] // 8, CLIP[2] // 8, 256, 40.0),
               ("ragged-7x9", 1, 7, 9, 32, 2.0))
 
@@ -617,9 +620,11 @@ def corr_bound(f1, stored, coords) -> dict:
 
 
 def phase_corr_kernel(device) -> list:
-    """The correlation kernel against its plain twin, then its time beside
-    its bound, the twin and (for information: no single PyTorch call computes
-    this function) the materialized path's volume build and lookup."""
+    """The band body against its plain twin, two calls bit-equal, then its
+    time beside its bound, the twin and (for information: no single PyTorch
+    call computes this function) the materialized path's volume build and
+    lookup; beside the bound, the window bytes the per-pixel design reads
+    through L1 (needed dots x 2 D)."""
     import torch
 
     from deflicker_torch.models import raft as R
@@ -629,7 +634,10 @@ def phase_corr_kernel(device) -> list:
     for name, B, H, W, D, spread in CORR_CASES:
         f1, f2, stored, coords = corr_case(B, H, W, D, spread, device)
         got = C.corr_lookup_cuda(f1, stored, coords)
+        again = C.corr_lookup_cuda(f1, stored, coords)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"corr {name}: two calls differ")
         want = C.corr_lookup_plain(f1, stored, coords)
         if got.shape != want.shape or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"corr {name}: shape {tuple(got.shape)} or "
@@ -644,6 +652,7 @@ def phase_corr_kernel(device) -> list:
                    call_ms=cuda_ms(lambda: C.corr_lookup_cuda(f1, stored, coords), host=True),
                    plain_ms=cuda_ms(lambda: C.corr_lookup_plain(f1, stored, coords)),
                    library_ms=None, **corr_bound(f1, stored, coords))
+        row["window_bytes"] = 2.0 * D * row["dots"]
         # the materialized mode on the same inputs (f32 volume): what a solve
         # pays once (build) and per iteration (lookup) without the kernel
         row["materialized_build_ms"] = cuda_ms(
@@ -997,12 +1006,12 @@ def phase_dual_profile(device, frames: Path, atlas_cfg, steps: int = 20) -> None
 def phase_corr_bodies(device) -> dict:
     """The shared and resident bodies (the tensor-core kernel) at the flow
     engine's shape and three flow spreads: against the plain twin (the band
-    body's tolerances) and the band body; two calls bit-equal; at +-0.5 px,
-    where every (tile, level) takes the tensor cores in both modes, shared
-    and resident bit-equal; at +-0.5 and +-3 every tile of every level
-    staged.  Then timed beside the band body and the twin, with the share of
-    staged tiles by level (the kernel's counters, and `tile_plan`'s
-    prediction) and the resident levels."""
+    body's tolerances) and the band body; two calls bit-equal; shared and
+    resident bit-equal (at +-40 levels 0-1 take the band body's products in
+    both); at +-0.5 and +-3 every tile of every level staged.  Then timed
+    beside the band body and the twin, with the share of staged tiles by
+    level (the kernel's counters, and `tile_plan`'s prediction) and the
+    resident levels."""
     import torch
 
     from deflicker_torch.ops.cuda import corr_kernel as C
@@ -1062,8 +1071,8 @@ def phase_corr_bodies(device) -> dict:
                     shapes, D, row["resident_capacity_bytes"]))
             rows[body].append(row)
         same = bool(torch.equal(outs["shared"], outs["resident"]))
-        if spread == 0.5 and not same:
-            raise AssertionError("corr +-0.5: shared and resident differ")
+        if not same:
+            raise AssertionError(f"corr +-{spread}: shared and resident differ")
         for body in ("shared", "resident"):
             rows[body][-1]["bit_equal_shared_resident"] = same
             print(f"[kernel] corr_{body} +-{spread}: {rows[body][-1]}", flush=True)

@@ -41,15 +41,47 @@
 // needed dots at +-3 px, three times over, take 0.019 ms at 989 TFLOP/s; so
 // bytes bound the function.
 //
-// Band body (row 5; also the route of a shared or
-// resident tile that cannot stage).  One warp owns one pixel on the CUDA
-// cores: f1(p) in registers (D/32 floats a lane); per level the warp walks
-// the 10 window rows, each row's 10 positions read as 16 bytes a lane,
-// reduced across the warp by a packed butterfly into the table in shared
-// memory; the lanes write the 81 outputs.  A block is 8 warps on 8
-// raster-consecutive pixels, reading global memory with a bounds test per
-// position standing in for padding.
-//
+// Band body (row 5, the default; replaces `_lookup_level`, TPU kernel
+// corr_kernel.py:616; also the route of a shared or resident tile whose
+// union window cannot stage).  One warp owns one pixel, and each of its
+// windows is one tensor-core product: mma.sync m16n8k16, bf16 -> f32.
+//   * A: the window's positions m = by K1 + ax (y outer), 8 an M-tile (MT =
+//     13 of them, two at a time), each position as two rows, its channel
+//     halves, raw bf16 as stored.  A lane's 16-byte ld.global.nc reads 8
+//     channels of one half for two k-steps (the channel order pi,
+//     `band_channels` in ops/cuda/corr_kernel.py; the contraction does not
+//     depend on the order), and the 8 lanes of a quarter-warp read one
+//     whole 128-byte line of one position.  A position outside the level is
+//     predicated off; a pair of M-tiles with no position inside (a
+//     warp-uniform vote) issues no load and no product, so the work follows
+//     the needed dots (`band_pairs` and `band_live_pairs` mirror the layout
+//     and the rule).
+//   * B: f1(p)'s three bf16 terms (t0 = bf16(f), t1 = bf16(f - t0), t2 =
+//     bf16(f - t0 - t1): all 24 bits, every product exact in f32) of half
+//     0's channels in columns 0-2 and of half 1's in columns 5-7, the same
+//     pi; columns 3-4 zero.  Built once a pixel, kept in registers across
+//     the levels (D / 16 a lane).
+//   * A table entry is columns 0-2 of the position's half-0 row plus
+//     columns 5-7 of its half-1 row, held by four lanes and joined by two
+//     shuffles into the warp's 10 x 10 table in shared memory; then the
+//     lanes write the 81 outputs.  Two M-tiles go together, two chains of
+//     products a warp.
+//   * What the layout weighs (tools/corr_variants.py, PERF.md): a row a
+//     position, whose 16-byte loads are each one product's A fragments as
+//     they lie, runs fewer instructions, but each quarter-warp then reads 64
+//     bytes of each of two positions, two L1 lines a request, and its loads
+//     cost twice as much; here the loads take one line a quarter-warp and
+//     the fragments cost register moves (three bf16 terms leave room in the
+//     8 columns for two row kinds only).
+// Bound now: not one part.  The loop's instruction issue (fragment moves,
+// index arithmetic, the join), the window bytes each pixel reads through L1
+// (needed dots x 2 D: 6.2 GB at +-3 px at the engine's shape, ~0.2 ms at
+// 128 B a clock an SM) and the products each take a comparable share and
+// overlap little (tools/corr_variants.py takes them out one at a time;
+// PERF.md has the times).  The CUDA-core design it replaces was bound by its
+// issue alone (unpacking, 80 FMAs and a 16-value shuffle butterfly a window
+// row, whatever the data).  Block: 8 warps on 8 raster-consecutive pixels.
+
 // Shared and resident bodies (rows 6 and 7): one kernel, corr_lookup_tc_kernel,
 // whose window products run as wgmma on the tensor cores.
 //   * Tile: 64 pixels, an 8 x 8 square of one batch element's grid (pixels
@@ -76,8 +108,9 @@
 //     test.  A union of at most ENV x ENV blocks stages (at the engine's
 //     shape every tile at +-0.5 and +-3 px); a larger one (motion boundaries,
 //     scattered flow) sends the tile's pixels through the band body's
-//     warp-per-pixel route for that level (two pixels a warp at a time), by
-//     design and counted (`staged`), never on a failure.
+//     per-pixel window products for that level (consumer warp W its 8
+//     pixels, two at a time), by design and counted (`staged`), never on a
+//     failure.
 //   * Operand B, resident (resident mode): the levels the caller marks are
 //     copied whole, batch element b's slice, once per block by TMA (a 3-D map
 //     (D, H_l W_l, B), box (64, 8, 1)) into shared memory in the same layout,
@@ -98,7 +131,8 @@
 // 25,600, and what is left of the 227 KB (corr_resident_capacity) for
 // resident levels (level 3 alone at the engine's shape).  D = 32 rows are 64
 // bytes, below the swizzle's 128: such shared and resident launches take the
-// band body.
+// band body, whose products run on the tensor cores at every D (one k-step
+// an M-tile at D = 32, eight at D = 256).
 //
 // Interface: plain C, loaded with ctypes; every launch goes on the caller's
 // stream, allocates nothing, and returns cudaGetLastError() (or the error of
@@ -111,6 +145,8 @@
 #include <stddef.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -128,111 +164,174 @@ namespace {
 constexpr int R = 4;              // window radius
 constexpr int K = 2 * R + 1;      // window points a side
 constexpr int K1 = K + 1;         // integer positions a side
-constexpr int ROWPAD = 16;        // K1 padded to a power of two for the butterfly
+constexpr int MT = (K1 * K1 + 7) / 8;   // band products: M-tiles of 8 window positions
 constexpr int NWARP = 8;          // band body: warps (pixels) a block
 constexpr unsigned FULL = 0xffffffffu;
 
 typedef __nv_bfloat16 bf16;
 
-// VPL = values per lane = D / 32.  Raw<VPL> is a lane's share of one bf16 row.
-template <int VPL> struct Raw;
-template <> struct Raw<8> { typedef uint4 type; };
-template <> struct Raw<4> { typedef uint2 type; };
-template <> struct Raw<2> { typedef unsigned int type; };
-template <> struct Raw<1> { typedef unsigned short type; };
-
-__device__ __forceinline__ float lo_bf16(unsigned int u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float hi_bf16(unsigned int u) { return __uint_as_float(u & 0xffff0000u); }
-
-__device__ __forceinline__ float dot_raw(const uint4& q, const float (&a)[8]) {
-  float s = a[0] * lo_bf16(q.x);
-  s = fmaf(a[1], hi_bf16(q.x), s);
-  s = fmaf(a[2], lo_bf16(q.y), s);
-  s = fmaf(a[3], hi_bf16(q.y), s);
-  s = fmaf(a[4], lo_bf16(q.z), s);
-  s = fmaf(a[5], hi_bf16(q.z), s);
-  s = fmaf(a[6], lo_bf16(q.w), s);
-  s = fmaf(a[7], hi_bf16(q.w), s);
-  return s;
-}
-__device__ __forceinline__ float dot_raw(const uint2& q, const float (&a)[4]) {
-  float s = a[0] * lo_bf16(q.x);
-  s = fmaf(a[1], hi_bf16(q.x), s);
-  s = fmaf(a[2], lo_bf16(q.y), s);
-  s = fmaf(a[3], hi_bf16(q.y), s);
-  return s;
-}
-__device__ __forceinline__ float dot_raw(const unsigned int& q, const float (&a)[2]) {
-  return fmaf(a[1], hi_bf16(q), a[0] * lo_bf16(q));
-}
-__device__ __forceinline__ float dot_raw(const unsigned short& q, const float (&a)[1]) {
-  return a[0] * __uint_as_float(((unsigned int)q) << 16);
+// c += A B on the tensor cores: A 16 x 16 (row-major fragments a0..a3), B
+// 16 x 8 (column-major fragments b0, b1), bf16 operands, f32 sums.
+__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// Sum each of 16 per-lane values over the 32 lanes.  At offset o a lane with
-// bit o set keeps the upper half of what is left and hands over the lower
-// half, so the stages cost 8 + 4 + 2 + 1 shuffles and one more joins the odd
-// and even lanes.  On return lane L holds the total of v[L >> 1].
-template <int HALF, int OFFSET>
-__device__ __forceinline__ void butterfly_stage(float (&v)[ROWPAD], int lane) {
-  const bool up = (lane & OFFSET) != 0;
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// The band products' layout at channel width D.  An M-tile is 8 window
+// positions, each as two rows of A, its channel halves: half h holds
+// channels 64w + 32h + [0, 32) for w < D / 64 (at D = 32: 16h + [0, 16)).
+// Lane t of a row reads CPL of them from channel chan(w, h, t) with one
+// 16-byte (8-byte) load, so the 8 lanes of a quarter-warp, which hold the
+// two halves of one position, read one whole 128-byte line of it; a load's
+// words feed k-steps 2w (the first two) and 2w + 1 (the last two) at
+// contraction rows 2t, 2t + 1, 2t + 8, 2t + 9 (the channel order pi,
+// `band_channels` in ops/cuda/corr_kernel.py).
+template <int D> struct Band {
+  static constexpr int NW = D >= 64 ? D / 64 : 1;   // loads a row a lane
+  static constexpr int CPL = D >= 64 ? 8 : 4;       // channels a load
+  typedef typename std::conditional<(D >= 64), uint4, uint2>::type raw_t;
+  __device__ static int chan(int w, int h, int t) {
+    return D >= 64 ? 64 * w + 32 * h + 8 * t : 16 * h + 4 * t;
+  }
+};
+
+// word i of a load (i a constant after unrolling)
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ uint32_t word(const uint2& v, int i) { return i == 0 ? v.x : v.y; }
+
+// B fragments of one pixel's window products (f1row: its D floats; none
+// read where `on` is false, and the fragments are zero): the three bf16
+// terms of f1 (t0 = bf16(f), t1 = bf16(f - t0), t2 = bf16(f - t0 - t1):
+// all 24 bits, so every product with a bf16 value is exact in f32) of half
+// 0's channels in columns 0, 1, 2 and of half 1's in columns 5, 6, 7;
+// columns 3 and 4 zero.  Lane (g, t) holds column g at contraction rows
+// 2t, 2t + 1 (fragment 0) and 2t + 8, 2t + 9 (fragment 1): bf[w][2v + i]
+// is fragment i of k-step 2w + v, channels chan(w, h, t) + 4v + 2i + {0, 1}.
+template <int D>
+__device__ __forceinline__ void f1_fragments(const float* __restrict__ f1row, bool on, int lane,
+                                             uint32_t (&bf)[Band<D>::NW][4]) {
+  typedef Band<D> L;
+  const int g = lane >> 2, t = lane & 3, h = g >= 5, term = h ? g - 5 : g;
+  on = on && (g < 3 || g >= 5);
 #pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    const float keep = up ? v[i + HALF] : v[i];
-    const float send = up ? v[i] : v[i + HALF];
-    v[i] = keep + __shfl_xor_sync(FULL, send, OFFSET);
+  for (int w = 0; w < L::NW; ++w) {
+    float f[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (on) {
+      const float4* src = reinterpret_cast<const float4*>(f1row + L::chan(w, h, t));
+#pragma unroll
+      for (int i = 0; i < L::CPL / 4; ++i) {
+        const float4 v = __ldg(src + i);
+        f[4 * i] = v.x; f[4 * i + 1] = v.y; f[4 * i + 2] = v.z; f[4 * i + 3] = v.w;
+      }
+    }
+    bf16 x[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const bf16 t0 = __float2bfloat16_rn(f[e]);
+      const float r0 = f[e] - __bfloat162float(t0);     // exact
+      const bf16 t1 = __float2bfloat16_rn(r0);
+      const bf16 t2 = __float2bfloat16_rn(r0 - __bfloat162float(t1));
+      x[e] = term == 0 ? t0 : (term == 1 ? t1 : t2);     // columns 3, 4: f = 0
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) bf[w][i] = pack_bf16(x[2 * i], x[2 * i + 1]);
   }
 }
 
-__device__ __forceinline__ float reduce16(float (&v)[ROWPAD], int lane) {
-  butterfly_stage<8, 16>(v, lane);
-  butterfly_stage<4, 8>(v, lane);
-  butterfly_stage<2, 4>(v, lane);
-  butterfly_stage<1, 2>(v, lane);
-  return v[0] + __shfl_xor_sync(FULL, v[0], 1);
-}
-
-// The ten dots of one window row (q: a lane's share of the ten positions)
-// into column `by` of the warp's table: table[ax * K1 + by].
-template <int VPL>
-__device__ __forceinline__ void row_to_table(const typename Raw<VPL>::type (&q)[K1],
-                                             const float (&a)[VPL], float* table, int by,
-                                             int lane) {
-  float v[ROWPAD];
+// NP pixels' 10 x 10 tables at one level, table[n][ax * K1 + by] =
+// <f1_n, f2_l(x0[n] + ax, y0[n] + by)> (base: batch element b's slice of
+// the level), as up to MT products each.  M-tile j holds window positions
+// m = 8j .. 8j + 7 (m = by K1 + ax); rows 2p and 2p + 1 are the halves of
+// position 8j + p, rows 8 + 2p and 9 + 2p those of 8j + 4 + p (p < 4).  So
+// lane (g, t) loads half g & 1 of positions g / 2 + 4k.  Each step takes
+// two M-tiles, two chains of products a warp: the next two of one pixel
+// (NP = 1, the band body) or the next one of each of two pixels (NP = 2,
+// the unstaged tiles of the shared and resident bodies, whose warps are
+// fewer).  A load outside the level is predicated off (its row then holds
+// what an earlier load left, and the table entry is written zero); a step
+// with no position inside (a warp-uniform vote) issues no load and no
+// product.  A position's dot is columns 0-2 of its half-0 row plus columns
+// 5-7 of its half-1 row; as columns 3 and 4 are zero, every lane adds its
+// two columns, and lanes 8p, 8p + 1 (columns 0-3) and 8p + 6, 8p + 7
+// (columns 4-7) are joined by two shuffles.
+template <int D, int NP>
+__device__ __forceinline__ void window_products(const bf16* __restrict__ base, int Hl, int Wl,
+                                                const int (&x0)[NP], const int (&y0)[NP],
+                                                const uint32_t (&bf)[NP][Band<D>::NW][4],
+                                                float* const (&table)[NP], int lane) {
+  typedef Band<D> L;
+  typedef typename L::raw_t raw_t;
+  constexpr int ROWS = 4, RP = ROWS / NP;                  // rows of the lane a step, a pixel
+  constexpr int POS = D * 2 / (int)sizeof(raw_t);          // raw_t a position
+  constexpr int STEP = 128 / (int)sizeof(raw_t);           // raw_t from load w to w + 1
+  const int g = lane >> 2, t = lane & 3;
+  const raw_t* lane_base = reinterpret_cast<const raw_t*>(base + L::chan(0, g & 1, t));
+  raw_t q[ROWS][L::NW];
 #pragma unroll
-  for (int ax = 0; ax < K1; ++ax) v[ax] = dot_raw(q[ax], a);
+  for (int k = 0; k < ROWS; ++k)
 #pragma unroll
-  for (int ax = K1; ax < ROWPAD; ++ax) v[ax] = 0.0f;
-  const float tot = reduce16(v, lane);
-  if ((lane & 1) == 0 && (lane >> 1) < K1) table[(lane >> 1) * K1 + by] = tot;
-}
-
-// The window's 10 x 10 table from a whole level (b's slice) in global
-// (SMEM = false) or shared (SMEM = true) memory, with a bounds test per
-// position.
-template <int VPL, bool SMEM>
-__device__ __forceinline__ void window_table(const bf16* __restrict__ base, int Hl, int Wl,
-                                             int x0, int y0, const float (&a)[VPL],
-                                             float* table, int lane) {
-  typedef typename Raw<VPL>::type raw_t;
-  constexpr int D = 32 * VPL;
-  for (int by = 0; by < K1; ++by) {
-    const int y = y0 + by;
-    const bool y_in = (y >= 0) && (y < Hl);
-    // the row's ten loads first, so that they are in flight together
-    raw_t q[K1];
+    for (int w = 0; w < L::NW; ++w) q[k][w] = raw_t();
+  int m = g >> 1, ax = m, by = 0;       // the lane's next position, m = by K1 + ax
+#pragma unroll 1
+  for (int i = 0; i < (MT * 8 + 4 * RP - 1) / (4 * RP); ++i) {
+    bool in[ROWS];
+    int cell[ROWS];
+    const raw_t* src[ROWS];
 #pragma unroll
-    for (int ax = 0; ax < K1; ++ax) {
-      const int x = x0 + ax;
-      const bool in = y_in && (x >= 0) && (x < Wl);
-      const raw_t* src = reinterpret_cast<const raw_t*>(base + ((size_t)y * Wl + x) * D) + lane;
-      if constexpr (SMEM) {
-        q[ax] = in ? *src : raw_t();
-      } else {
-        q[ax] = in ? __ldg(src) : raw_t();
+    for (int j = 0; j < RP; ++j) {
+#pragma unroll
+      for (int n = 0; n < NP; ++n) {
+        const int k = n * RP + j, x = x0[n] + ax, y = y0[n] + by;
+        in[k] = m < K1 * K1 && (unsigned)x < (unsigned)Wl && (unsigned)y < (unsigned)Hl;
+        cell[k] = m < K1 * K1 ? ax * K1 + by : -1;
+        src[k] = lane_base + (ptrdiff_t)(y * Wl + x) * POS;
+      }
+      m += 4;
+      ax += 4;
+      if (ax >= K1) {
+        ax -= K1;
+        ++by;
       }
     }
-    row_to_table<VPL>(q, a, table, by, lane);
+    float c[2][4];                       // [tile]
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[u][e] = 0.0f;
+    if (__any_sync(FULL, in[0] || in[1] || in[2] || in[3])) {
+#pragma unroll
+      for (int k = 0; k < ROWS; ++k)
+        if (in[k]) {
+#pragma unroll
+          for (int w = 0; w < L::NW; ++w) q[k][w] = __ldg(src[k] + STEP * w);
+        }
+#pragma unroll
+      for (int w = 0; w < L::NW; ++w)
+#pragma unroll
+        for (int v = 0; v < L::CPL / 4; ++v)
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            mma16816(c[u], word(q[2 * u][w], 2 * v), word(q[2 * u + 1][w], 2 * v),
+                     word(q[2 * u][w], 2 * v + 1), word(q[2 * u + 1][w], 2 * v + 1),
+                     bf[2 * u / RP][w][2 * v], bf[2 * u / RP][w][2 * v + 1]);
+    }
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+      // row k of the lane: tile k / 2, fragment row g (k even) or g + 8
+      const float mine = c[k / 2][2 * (k % 2)] + c[k / 2][2 * (k % 2) + 1];
+      const float half = mine + __shfl_xor_sync(FULL, mine, 1);
+      const float tot = half + __shfl_xor_sync(FULL, half, 6);
+      if ((lane & 7) == 0 && cell[k] >= 0) table[k / RP][cell[k]] = in[k] ? tot : 0.0f;
+    }
   }
 }
 
@@ -271,31 +370,14 @@ __device__ __forceinline__ Corner corner(float cx, float cy, int l, int Hl, int 
   return c;
 }
 
-template <int VPL>
-__device__ __forceinline__ void load_f1(const float* __restrict__ f1, long long pix, int lane,
-                                        float (&a)[VPL]) {
-  const float* p = f1 + (size_t)pix * (32 * VPL) + lane * VPL;
-  if constexpr (VPL % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < VPL / 4; ++q) {
-      const float4 t = __ldg(reinterpret_cast<const float4*>(p) + q);
-      a[4 * q] = t.x; a[4 * q + 1] = t.y; a[4 * q + 2] = t.z; a[4 * q + 3] = t.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < VPL; ++i) a[i] = __ldg(p + i);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // band body
 // ---------------------------------------------------------------------------
 
-template <int VPL>
+template <int D>
 __global__ void __launch_bounds__(NWARP * 32, 2)
 corr_lookup_kernel(const CorrDesc d, const float* __restrict__ f1, const float* __restrict__ coords,
                    float* __restrict__ out, long long total, int N, float inv_sqrt_d) {
-  constexpr int D = 32 * VPL;
   __shared__ float table_s[NWARP][K1 * K1];
 
   const int lane = threadIdx.x & 31;
@@ -305,8 +387,8 @@ corr_lookup_kernel(const CorrDesc d, const float* __restrict__ f1, const float* 
   float* table = table_s[warp];
   const int b = (int)(pix / N);
 
-  float a[VPL];
-  load_f1<VPL>(f1, pix, lane, a);
+  uint32_t bf[1][Band<D>::NW][4];
+  f1_fragments<D>(f1 + (size_t)pix * D, true, lane, bf[0]);
   const float cx = __ldg(coords + 2 * (size_t)pix);
   const float cy = __ldg(coords + 2 * (size_t)pix + 1);
   float* o = out + (size_t)pix * d.n_levels * (K * K);
@@ -314,8 +396,9 @@ corr_lookup_kernel(const CorrDesc d, const float* __restrict__ f1, const float* 
   for (int l = 0; l < d.n_levels; ++l) {
     const int Hl = d.H[l], Wl = d.W[l];
     const Corner c = corner(cx, cy, l, Hl, Wl);
-    window_table<VPL, false>(d.f2[l] + (size_t)b * Hl * Wl * D, Hl, Wl, c.x0, c.y0, a, table,
-                             lane);
+    const int x0[1] = {c.x0}, y0[1] = {c.y0};
+    float* const tab[1] = {table};
+    window_products<D, 1>(d.f2[l] + (size_t)b * Hl * Wl * D, Hl, Wl, x0, y0, bf, tab, lane);
     __syncwarp();
     table_to_out(table, c.wx, c.wy, inv_sqrt_d, o + l * (K * K), lane);
     __syncwarp();
@@ -442,37 +525,6 @@ __device__ __forceinline__ Plan plan_level(const TcParams& p, int l, const TileP
   q.nbx = __shfl_sync(FULL, nbx, 0);
   q.nby = __shfl_sync(FULL, nby, 0);
   return q;
-}
-
-// The band body's route for two pixels of a tile at once (a level whose
-// union does not stage): both windows' row loads in flight together, then
-// each row reduced as `window_table` reduces it.  A masked pixel's corner
-// lies far outside the level: it loads nothing and its table is zero.
-template <int VPL>
-__device__ __forceinline__ void window_table2(const bf16* __restrict__ base, int Hl, int Wl,
-                                              const int (&x0)[2], const int (&y0)[2],
-                                              const float (&a)[2][VPL], float* t0, float* t1,
-                                              int lane) {
-  typedef typename Raw<VPL>::type raw_t;
-  constexpr int D = 32 * VPL;
-  for (int by = 0; by < K1; ++by) {
-    raw_t q[2][K1];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int y = y0[u] + by;
-      const bool y_in = (y >= 0) && (y < Hl);
-#pragma unroll
-      for (int ax = 0; ax < K1; ++ax) {
-        const int x = x0[u] + ax;
-        const bool in = y_in && (x >= 0) && (x < Wl);
-        q[u][ax] = in ? __ldg(reinterpret_cast<const raw_t*>(base + ((size_t)y * Wl + x) * D) +
-                              lane)
-                      : raw_t();
-      }
-    }
-    row_to_table<VPL>(q[0], a[0], t0, by, lane);
-    row_to_table<VPL>(q[1], a[1], t1, by, lane);
-  }
 }
 
 // Producer warp: the resident levels once, then every staged block's
@@ -677,13 +729,13 @@ __device__ __forceinline__ void level_products(const Plan& q, int Wl, int P, con
 // either warpgroup holds pixels 16 wl .. 16 wl + 15 of each of its groups;
 // output, zeroing and the band route: consumer warp W owns pixels 8 W ..
 // 8 W + 7 and their tables.  Two barriers a level order the tables' uses.
-template <int VPL>
+template <int D>
 __device__ __forceinline__ void tc_consume(const TcParams& p, unsigned char* A,
                                            const unsigned char* ring, const unsigned char* res,
                                            float* tables, uint64_t* full, uint64_t* empty,
                                            uint64_t* res_bar, int b, int t0, int t1, int wg) {
   using namespace hopper;
-  constexpr int D = 32 * VPL, KC = D / 64;
+  constexpr int KC = D / 64;
   const int lt = threadIdx.x, wlt = lt & 127, wl = wlt >> 5, W = lt >> 5, lane = lt & 31;
   const int L = p.d.n_levels;
   float* wtab = tables + 8 * W * (K1 * K1);
@@ -725,27 +777,29 @@ __device__ __forceinline__ void tc_consume(const TcParams& p, unsigned char* A,
         level_products<KC, false>(q, Wl, Hl * Wl, A, res + p.res_off[l], p.res_rows[l], full,
                                   empty, it, rx, ry, tables, wg, wlt);
       } else if (q.kind == K_CORE) {
+        // the band body's window products, two of the warp's pixels at a
+        // time (a masked pixel's corner lies outside the level: its table,
+        // never read, is written zero)
         const bf16* base = p.d.f2[l] + (size_t)b * Hl * Wl * D;
         for (int i = 0; i < 8; i += 2) {
-          float a[2][VPL];
+          uint32_t bf[2][Band<D>::NW][4];
           int cx0[2], cy0[2];
+          float* const tab[2] = {wtab + i * (K1 * K1), wtab + (i + 1) * (K1 * K1)};
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
             const int r = 8 * W + i + u, gx = gx0 + (r & 7), gy = gy0 + (r >> 3);
-            cx0[u] = cy0[u] = -(1 << 20);
-#pragma unroll
-            for (int e = 0; e < VPL; ++e) a[u][e] = 0.0f;
-            if (gx < p.W && gy < p.H) {
-              const long long pix = (long long)b * p.N + (long long)gy * p.W + gx;
-              load_f1<VPL>(p.f1, pix, lane, a[u]);
+            const bool real = gx < p.W && gy < p.H;
+            const size_t pix = (size_t)b * p.N + (size_t)gy * p.W + gx;
+            f1_fragments<D>(p.f1 + pix * D, real, lane, bf[u]);
+            cx0[u] = cy0[u] = -2 * K1;
+            if (real) {
               const Corner c = corner(__ldg(p.coords + 2 * pix), __ldg(p.coords + 2 * pix + 1),
                                       l, Hl, Wl);
               cx0[u] = c.x0;
               cy0[u] = c.y0;
             }
           }
-          window_table2<VPL>(base, Hl, Wl, cx0, cy0, a, wtab + i * (K1 * K1),
-                             wtab + (i + 1) * (K1 * K1), lane);
+          window_products<D, 2>(base, Hl, Wl, cx0, cy0, bf, tab, lane);
         }
       }
       named_sync(1, NCT);  // every table of the tile is whole
@@ -768,11 +822,11 @@ __device__ __forceinline__ void tc_consume(const TcParams& p, unsigned char* A,
   }
 }
 
-template <int VPL>
+template <int D>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 corr_lookup_tc_kernel(const __grid_constant__ TcParams p) {
   using namespace hopper;
-  constexpr int D = 32 * VPL, KC = D / 64;
+  constexpr int KC = D / 64;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* A = smem;
@@ -798,7 +852,7 @@ corr_lookup_tc_kernel(const __grid_constant__ TcParams p) {
     tc_produce<KC>(p, ring, res, full, empty, res_bar, b, t0, t1, threadIdx.x & 31);
     return;
   }
-  tc_consume<VPL>(p, A, ring, res, tables, full, empty, res_bar, b, t0, t1, wg);
+  tc_consume<D>(p, A, ring, res, tables, full, empty, res_bar, b, t0, t1, wg);
 }
 
 // ---------------------------------------------------------------------------
@@ -816,11 +870,10 @@ int smem_optin(int* optin) {
 }
 
 // the shared or resident body (D >= 64)
-template <int VPL>
+template <int D>
 int launch_tc(int body, const CorrDesc& d, const float* f1, const float* coords, float* out,
               int B, int N, unsigned resident, int tiles_per_block, int* staged,
               cudaStream_t stream) {
-  constexpr int D = 32 * VPL;
   if ((long long)d.H[0] * d.W[0] != N || tiles_per_block < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
   TcParams* tp = new TcParams;
@@ -866,31 +919,31 @@ int launch_tc(int body, const CorrDesc& d, const float* f1, const float* coords,
   int err = ok ? smem_optin(&optin) : (int)cudaErrorInvalidValue;
   if (err == 0 && bytes > (size_t)optin) err = (int)cudaErrorInvalidValue;
   if (err == 0)
-    err = (int)cudaFuncSetAttribute(corr_lookup_tc_kernel<VPL>,
+    err = (int)cudaFuncSetAttribute(corr_lookup_tc_kernel<D>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == 0) {
     const dim3 grid((unsigned)((tp->ntiles + tiles_per_block - 1) / tiles_per_block),
                     (unsigned)B);
-    corr_lookup_tc_kernel<VPL><<<grid, TC_THREADS, bytes, stream>>>(*tp);
+    corr_lookup_tc_kernel<D><<<grid, TC_THREADS, bytes, stream>>>(*tp);
     err = (int)cudaGetLastError();
   }
   delete tp;
   return err;
 }
 
-template <int VPL>
+template <int D>
 int launch(int body, const CorrDesc& d, const float* f1, const float* coords, float* out, int B,
            int N, unsigned resident, int tiles_per_block, int* staged, cudaStream_t stream) {
-  if constexpr (VPL >= 2) {
+  if constexpr (D >= 64) {
     if (body != BAND)
-      return launch_tc<VPL>(body, d, f1, coords, out, B, N, resident, tiles_per_block, staged,
+      return launch_tc<D>(body, d, f1, coords, out, B, N, resident, tiles_per_block, staged,
                             stream);
   }
   const long long total = (long long)B * N;
-  const float inv_sqrt_d = 1.0f / sqrtf((float)(32 * VPL));
+  const float inv_sqrt_d = 1.0f / sqrtf((float)D);
   const unsigned grid = (unsigned)((total + NWARP - 1) / NWARP);
-  corr_lookup_kernel<VPL><<<grid, NWARP * 32, 0, stream>>>(d, f1, coords, out, total, N,
-                                                           inv_sqrt_d);
+  corr_lookup_kernel<D><<<grid, NWARP * 32, 0, stream>>>(d, f1, coords, out, total, N,
+                                                         inv_sqrt_d);
   return (int)cudaGetLastError();
 }
 
@@ -908,19 +961,28 @@ long long corr_resident_capacity(void) {
   return (long long)optin - (long long)tc_fixed_bytes(256);
 }
 
-// Registers, local (spill) bytes a thread and shared memory of a launch of
-// the tensor-core kernel at D (64, 128 or 256), resident levels not counted.
-int corr_tc_kernel_attrs(int D, int* regs, int* local_bytes, int* smem_bytes) {
-  const void* fn = D == 64 ? (const void*)corr_lookup_tc_kernel<2>
-                   : D == 128 ? (const void*)corr_lookup_tc_kernel<4>
-                   : D == 256 ? (const void*)corr_lookup_tc_kernel<8> : nullptr;
+// Registers, local (spill) bytes a thread and shared memory a block of a
+// launch at D: tc = 0, the band kernel (D in {32, 64, 128, 256}); tc = 1,
+// the tensor-core kernel of the shared and resident bodies (D in {64, 128,
+// 256}), resident levels not counted.
+int corr_kernel_attrs(int tc, int D, int* regs, int* local_bytes, int* smem_bytes) {
+  const void* fn = nullptr;
+  if (tc == 0)
+    fn = D == 32 ? (const void*)corr_lookup_kernel<32>
+         : D == 64 ? (const void*)corr_lookup_kernel<64>
+         : D == 128 ? (const void*)corr_lookup_kernel<128>
+         : D == 256 ? (const void*)corr_lookup_kernel<256> : nullptr;
+  else if (tc == 1)
+    fn = D == 64 ? (const void*)corr_lookup_tc_kernel<64>
+         : D == 128 ? (const void*)corr_lookup_tc_kernel<128>
+         : D == 256 ? (const void*)corr_lookup_tc_kernel<256> : nullptr;
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(&a, fn);
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
-  *smem_bytes = (int)(tc_fixed_bytes(D) + a.sharedSizeBytes);
+  *smem_bytes = (int)((tc ? tc_fixed_bytes(D) : 0) + a.sharedSizeBytes);
   return 0;
 }
 
@@ -941,10 +1003,10 @@ int corr_lookup(const CorrDesc* d, const float* f1, const float* coords, float* 
   if (((long long)B * N + NWARP - 1) / NWARP > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
-    case 32: return launch<1>(body, *d, f1, coords, out, B, N, resident, tiles_per_block, staged, s);
-    case 64: return launch<2>(body, *d, f1, coords, out, B, N, resident, tiles_per_block, staged, s);
-    case 128: return launch<4>(body, *d, f1, coords, out, B, N, resident, tiles_per_block, staged, s);
-    case 256: return launch<8>(body, *d, f1, coords, out, B, N, resident, tiles_per_block, staged, s);
+    case 32: return launch<32>(body, *d, f1, coords, out, B, N, resident, tiles_per_block, staged, s);
+    case 64: return launch<64>(body, *d, f1, coords, out, B, N, resident, tiles_per_block, staged, s);
+    case 128: return launch<128>(body, *d, f1, coords, out, B, N, resident, tiles_per_block, staged, s);
+    case 256: return launch<256>(body, *d, f1, coords, out, B, N, resident, tiles_per_block, staged, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -2,16 +2,21 @@
 
 The CUDA source is `deflicker_torch/csrc/corr_lookup.cu` (its header says
 which TPU kernels it replaces, its bound and its design).  It holds one
-function under three memory schedules ("bodies"): "band" (the default: a
-warp per pixel on the CUDA cores, windows read from global memory), and
-"shared" and "resident", one kernel whose window products run as wgmma on
-the tensor cores over 8 x 8 pixel tiles, with f1 split into two bf16 terms
-(bf16 f2 times each term is exact in f32) and f2's windows staged by TMA.  "shared" stages
-each tile's union window when it fits the envelope (`tile_plan` mirrors the
-rule) and sends the other tiles through the band body's route inside the
-same launch; "resident" also holds small levels whole in shared memory and
-multiplies each tile with all their positions.  At D = 32 both take the
-band body.  This module:
+function under three memory schedules ("bodies"), all on the tensor cores.
+"band" (the default) takes one pixel a warp and each of its windows as one
+mma.sync product straight from global memory: the bf16 f2 of 8 window
+positions an M-tile, each position's two channel halves as two rows,
+against f1's three bf16 terms of each half (all of f1's bits; bf16 times
+bf16 is exact in f32) in three columns each, the channels in the order
+`band_channels` gives, a pair of M-tiles wholly outside the level skipped
+(`band_pairs` and `band_live_pairs` mirror the layout and the rule).
+"shared" and "resident" are one kernel whose window products run as wgmma
+over 8 x 8 pixel tiles, with f1 split into two bf16 terms and f2's windows
+staged by TMA.  "shared" stages each tile's union window when it fits the
+envelope (`tile_plan` mirrors the rule) and sends the other tiles through
+the band body's products inside the same launch; "resident" also holds
+small levels whole in shared memory and multiplies each tile with all
+their positions.  At D = 32 both take the band body.  This module:
 
   * `corr_lookup_cuda` checks its tensors, allocates the output with
     `torch.empty`, launches the chosen body on the current stream of the
@@ -30,10 +35,11 @@ band body.  This module:
     pixel chunks: f2 is read from whatever dtype the pyramid is stored in
     (bf16 for the kernel's twin, f32 for the online mode of models/raft.py)
     and every product and sum is f32.  It is the twin of all three bodies
-    (they compute one function; the tensor-core bodies sum each dot in
-    another order than the band body, so they agree with it to f32
-    rounding, not bit for bit).  CPU tests and the on-card comparison use
-    it; nothing on the main path does when the tensors are on the card.
+    (one function; the band body's products are exact and only its sums
+    take another order, the wgmma bodies also keep 16 of f1's 24 bits, so
+    all agree with the twin within the stated tolerances, not bit for
+    bit).  CPU tests and the on-card comparison use it; nothing on the
+    main path does when the tensors are on the card.
 
 Both compute, for pixel p, level l and c = coords[p] / 2^l (clamped to
 [-(r+2), size-1+r+2], which changes no value: a window it moves was all zero
@@ -125,6 +131,15 @@ def _level_sizes(H: int, W: int, n: int):
     return sizes
 
 
+def _corners(coords: torch.Tensor, l: int, hl: int, wl: int, radius: int):
+    """The window corners (x0, y0) at level l, as the kernel computes them:
+    f32 coords over a power of two, clamped to [-(r+2), size-1+r+2], floor,
+    minus r."""
+    lx = (coords[..., 0].float() / 2.0 ** l).clamp(-(radius + 2.0), wl - 1.0 + radius + 2.0)
+    ly = (coords[..., 1].float() / 2.0 ** l).clamp(-(radius + 2.0), hl - 1.0 + radius + 2.0)
+    return torch.floor(lx).long() - radius, torch.floor(ly).long() - radius
+
+
 def tile_plan(coords: torch.Tensor, level_shapes: Sequence[Tuple[int, int]],
               radius: int = KERNEL_RADIUS) -> torch.Tensor:
     """Which (level, batch element, tile) the shared body stages: the mirror
@@ -132,8 +147,7 @@ def tile_plan(coords: torch.Tensor, level_shapes: Sequence[Tuple[int, int]],
     ceil(H/8), ceil(W/8)): the 8 x 8 tile's union window at level l, from
     the min to the max of its real pixels' window corners plus 2r+2, spans
     at most ENVELOPE blocks of BLOCK positions in x and in y, and the level
-    is not empty.  The corners are computed as the kernel computes them
-    (f32, a power-of-two scale, the same clamp)."""
+    is not empty."""
     B, H, W, _ = coords.shape
     ty, tx = -(-H // TILE), -(-W // TILE)
     pad = (0, 0, 0, tx * TILE - W, 0, ty * TILE - H)
@@ -146,15 +160,60 @@ def tile_plan(coords: torch.Tensor, level_shapes: Sequence[Tuple[int, int]],
     K1 = 2 * radius + 2
     out = []
     for l, (hl, wl) in enumerate(level_shapes):
-        lx = (c[..., 0] / 2.0 ** l).clamp(-(radius + 2.0), wl - 1.0 + radius + 2.0)
-        ly = (c[..., 1] / 2.0 ** l).clamp(-(radius + 2.0), hl - 1.0 + radius + 2.0)
         fits = []
-        for v in (lx, ly):
-            x0 = (torch.floor(v).long() - radius).reshape(B, ty, TILE, tx, TILE)
+        for x0 in _corners(c, l, hl, wl, radius):
+            x0 = x0.reshape(B, ty, TILE, tx, TILE)
             lo = torch.where(real, x0, big).amin(dim=(2, 4))
             hi = torch.where(real, x0, -big).amax(dim=(2, 4))
             fits.append(-(-(hi - lo + K1) // BLOCK) <= ENVELOPE)
         out.append(fits[0] & fits[1] & (hl > 0 and wl > 0))
+    return torch.stack(out)
+
+
+def band_channels(D: int) -> torch.Tensor:
+    """pi, the band body's channel order (the mirror of `Band::chan`,
+    `f1_fragments` and `window_products`): entry (2 s + h) 16 + kk is the
+    channel at contraction index kk of k-step s in the row of half h of a
+    window position.  Half h holds channels 64w + 32h + [0, 32) (at D = 32:
+    16h + [0, 16)); lane t of a row reads 8 (4) of them from 64w + 32h + 8t
+    (16h + 4t) with one load, and the m16n8k16 fragments put k-step 2w +
+    v's four (64w + 32h + 8t + 4v + 0..3) at kk = 2t, 2t + 1, 2t + 8,
+    2t + 9.  A and B take the same order, so the two rows' products sum to
+    the dot."""
+    s = torch.arange(D // 32)[:, None, None]
+    h = torch.arange(2)[None, :, None]
+    kk = torch.arange(16)[None, None, :]
+    t, rest = (kk % 8) // 2, 2 * (kk // 8) + kk % 2
+    if D == 32:
+        return (16 * h + 4 * t + rest).reshape(-1)
+    return (64 * (s // 2) + 32 * h + 8 * t + 4 * (s % 2) + rest).reshape(-1)
+
+
+def band_pairs() -> torch.Tensor:
+    """(7, 16, 2) int: the window position (ax, by) of each slot of the
+    band body's pairs of M-tiles (the mirror of `window_products`, radius
+    4): pair i holds window positions m = 16 i .. 16 i + 15, m = by 10 + ax
+    (y outer), its first M-tile the first 8; (-1, -1) marks the 12 empty
+    slots past m = 99.  Every window position appears once."""
+    m = torch.arange(7 * 16).reshape(7, 16)
+    pos = torch.stack([m % 10, m // 10], -1)
+    return torch.where((m < 100)[..., None], pos, -1)
+
+
+def band_live_pairs(coords: torch.Tensor, level_shapes: Sequence[Tuple[int, int]]
+                    ) -> torch.Tensor:
+    """Which of the band body's pairs of M-tiles issue loads and products:
+    the mirror of `window_products`' vote.  coords (B, H, W, 2) -> bool (L,
+    B, H, W, 7): a pair is live when one of its positions (`band_pairs`)
+    lies inside level l; a dead pair's table entries are zero."""
+    pairs = band_pairs().to(coords.device)
+    ax, by = pairs[..., 0], pairs[..., 1]
+    out = []
+    for l, (hl, wl) in enumerate(level_shapes):
+        x0, y0 = _corners(coords, l, hl, wl, KERNEL_RADIUS)
+        x, y = x0[..., None, None] + ax, y0[..., None, None] + by
+        inside = (ax >= 0) & (x >= 0) & (x < wl) & (y >= 0) & (y < hl)
+        out.append(inside.any(-1))
     return torch.stack(out)
 
 
@@ -245,8 +304,8 @@ def _library():
         lib.corr_lookup.restype = I
         lib.corr_resident_capacity.argtypes = []
         lib.corr_resident_capacity.restype = ctypes.c_longlong
-        lib.corr_tc_kernel_attrs.argtypes = [I, P, P, P]
-        lib.corr_tc_kernel_attrs.restype = I
+        lib.corr_kernel_attrs.argtypes = [I, I, P, P, P]
+        lib.corr_kernel_attrs.restype = I
         lib._deflicker_typed = True
     return lib
 
@@ -263,18 +322,21 @@ def resident_capacity() -> int:
 
 
 def kernel_attrs() -> dict:
-    """{D: (registers, local bytes a thread, shared bytes a launch)} of the
-    tensor-core kernel (the shared and resident bodies; resident levels not
-    counted) in the built library."""
+    """{(kernel, D): (registers, local bytes a thread, shared bytes a
+    block)} of the built library: the band kernel `corr_lookup_kernel` at
+    every D of KERNEL_DIMS, the tensor-core kernel `corr_lookup_tc_kernel`
+    of the shared and resident bodies at D >= 64 (resident levels not
+    counted)."""
     lib = _library()
     out = {}
-    for D in KERNEL_DIMS[1:]:
-        regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        err = lib.corr_tc_kernel_attrs(D, ctypes.byref(regs), ctypes.byref(local),
-                                       ctypes.byref(smem))
-        if err != 0:
-            raise RuntimeError(f"corr_tc_kernel_attrs failed: CUDA error {err}")
-        out[D] = (regs.value, local.value, smem.value)
+    for tc, name in ((0, "corr_lookup_kernel"), (1, "corr_lookup_tc_kernel")):
+        for D in KERNEL_DIMS[tc:]:
+            regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+            err = lib.corr_kernel_attrs(tc, D, ctypes.byref(regs), ctypes.byref(local),
+                                        ctypes.byref(smem))
+            if err != 0:
+                raise RuntimeError(f"corr_kernel_attrs failed: CUDA error {err}")
+            out[name, D] = (regs.value, local.value, smem.value)
     return out
 
 

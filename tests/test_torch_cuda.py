@@ -240,10 +240,12 @@ def test_wrapper_rejects_bad_operands(cuda_device):
 # correlation-window lookup
 # ---------------------------------------------------------------------------
 
-# (B, H, W, D, spread): the flow engine's width at a smaller batch, windows
-# far outside the level, the ragged case with an empty level, other widths
+# (B, H, W, D, spread): the flow engine's width at a smaller batch (windows
+# inside the levels at +-3 and +-0.5 px), windows far outside the level, the
+# ragged case with an empty level, other widths
 CORR_CASES = {
     "engine-54x96": (2, 54, 96, 256, 3.0),
+    "engine-54x96-0.5": (2, 54, 96, 256, 0.5),
     "far-out": (2, 54, 96, 256, 40.0),
     "ragged-7x9": (1, 7, 9, 32, 2.0),
     "d64-12x20": (2, 12, 20, 64, 5.0),
@@ -267,14 +269,17 @@ def _corr_case(name, device):
 
 @pytest.mark.parametrize("name", list(CORR_CASES))
 def test_corr_kernel_matches_plain(name, cuda_device):
-    """Kernel vs plain twin on the same bf16-stored pyramid: both multiply
-    the same rounded f2 by f32 f1 and differ only in the order of f32 sums,
-    so relative Frobenius 1e-4 and max abs 1e-3 of the largest value."""
+    """The band body (each window one mma.sync product, f1 as three bf16
+    terms) vs the plain twin on the same bf16-stored pyramid: both multiply
+    the same rounded f2 by all of f32 f1's bits and differ only in the order
+    of f32 sums, so relative Frobenius 1e-4 and max abs 1e-3 of the largest
+    value; two calls are bit-equal."""
     f1, pyr, coords = _corr_case(name, cuda_device)
     C.reset_launches()
     got = C.corr_lookup_cuda(f1, pyr, coords)
     torch.cuda.synchronize()
     assert C.launches == {"lookup": 1, "lookup_shared": 0, "lookup_resident": 0}
+    assert torch.equal(C.corr_lookup_cuda(f1, pyr, coords), got)
     want = C.corr_lookup_plain(f1, pyr, coords)
     assert got.shape == want.shape and torch.isfinite(got).all()
     assert _rel(got, want) < 1e-4
@@ -374,9 +379,12 @@ def test_corr_bodies_match_plain_and_band(body, shape, spread, cuda_device,
     the tensor cores (D >= 64; at D = 32 they take the band body and equal
     it bit for bit): within the band kernel's bounds of the plain twin
     (relative Frobenius 1e-4, max abs 1e-3 of the largest value) and of the
-    band kernel's output; two calls are bit-equal; at +-0.5 px, where every
-    (tile, level) takes the tensor cores in both modes, shared and resident
-    are bit-equal; the shared body's counters read the tiles that staged."""
+    band kernel's output; two calls are bit-equal; shared and resident are
+    bit-equal wherever every tile of each resident level stages in the
+    shared body (the same wgmma chain; the other levels take the same route
+    in both, at +-40 px the band body's products for unstaged tiles): at
+    every spread at the engine's shape, at +-0.5 px at all shapes; the
+    shared body's counters read the tiles that staged."""
     monkeypatch.delenv("DEFLICKER_CORR_RESIDENT_MAX_MB", raising=False)
     f1, pyr, coords = _corr_operands(*shape, spread, cuda_device)
     band = C.corr_lookup_cuda(f1, pyr, coords)
@@ -395,7 +403,12 @@ def test_corr_bodies_match_plain_and_band(body, shape, spread, cuda_device,
     assert _rel(got, band) < 1e-4
     if shape[3] == 32:
         assert torch.equal(got, band)
-    if spread == 0.5:
+    shapes = [tuple(p.shape[1:3]) for p in pyr]
+    plan = C.tile_plan(coords, shapes)
+    kept = C.resident_levels(shapes, shape[3], C.resident_capacity())
+    if shape == (2, 54, 96, 256) or spread == 0.5:
+        assert all(bool(plan[l].all()) for l in kept)
+    if all(bool(plan[l].all()) for l in kept):
         other = "resident" if body == "shared" else "shared"
         assert torch.equal(got, C.corr_lookup_cuda(f1, pyr, coords, body=other))
     if body == "shared":

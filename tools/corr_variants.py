@@ -1,14 +1,15 @@
-"""Time variants of the tensor-core correlation kernel against each other.
+"""Time variants of the correlation kernels against each other.
 
     python tools/corr_variants.py [variant ...]
 
 Builds `deflicker_torch/csrc/corr_lookup.cu` as written and with each named
 variant's text substitutions (all builds at once, into
-`build/corr_variants/`), then times the shared and resident bodies of every
-build at the flow engine's shape (8 x 54 x 96, D = 256, four levels; flows
-of +-0.5, +-3 and +-40 px) in turns (as written, variants, variants
+`build/corr_variants/`), then times the band, shared and resident bodies of
+every build at the flow engine's shape (8 x 54 x 96, D = 256, four levels;
+flows of +-0.5, +-3 and +-40 px) in turns (as written, variants, variants
 reversed, as written), and prints each build's device ms and its error
-against the plain twin.  Variants:
+against the plain twin.  Variants of the tensor-core kernel (shared and
+resident bodies):
 
   terms3       f1 as three bf16 terms (all its bits) instead of two, with
                two ring stages a warpgroup instead of three (the same
@@ -17,9 +18,20 @@ against the plain twin.  Variants:
   no_output    the tables are not combined into the output
   no_products  no wgmma is issued (the ring still runs)
 
-Only `terms3` computes the lookup; the others measure what a part of the
-kernel costs.  Needs a CUDA card and nvcc; prints the card's name and power
-limit first.
+and of the band body's window products (the band body, and the shared and
+resident bodies' tiles that do not stage):
+
+  band_no_products  the window rows are loaded, but folded by xor instead
+                    of multiplied on the tensor cores
+  band_no_loads     no window row is loaded: the products take registers
+  band_skeleton     both: neither loads nor products, the rest of the loop
+  band_no_join      a position's four lanes are not joined by shuffles
+  band_no_output    the band body writes one value a level instead of 81
+                    (every table still written)
+
+Only `terms3` computes the lookup; the others measure what a part of a
+kernel costs.  Needs a CUDA card and nvcc; prints the
+card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -47,7 +59,22 @@ VARIANTS = {
     "no_products": [("          wgmma_m64n128<0, 0>(acc, sw128_desc(A + (t * KC + kc) * ATOM + 32 * k, 16, 1024),\n"
                      "                              sw128_desc(bsrc + 32 * k, 16, 1024));",
                      "          ;")],
+    "band_no_products": [
+        ("            mma16816(c[u], word(q[2 * u][w], 2 * v), word(q[2 * u + 1][w], 2 * v),\n"
+         "                     word(q[2 * u][w], 2 * v + 1), word(q[2 * u + 1][w], 2 * v + 1),\n"
+         "                     bf[2 * u / RP][w][2 * v], bf[2 * u / RP][w][2 * v + 1]);",
+         "            c[u][(w + v) & 3] += __uint_as_float(\n"
+         "                (word(q[2 * u][w], 2 * v) ^ word(q[2 * u + 1][w], 2 * v) ^\n"
+         "                 word(q[2 * u][w], 2 * v + 1) ^ word(q[2 * u + 1][w], 2 * v + 1)) & 0x3f7fffffu);")],
+    "band_no_loads": [("q[k][w] = __ldg(src[k] + STEP * w);",
+                       "q[k][w].x ^= bf[0][w][0] + (uint32_t)k;")],
+    "band_no_join": [("      const float half = mine + __shfl_xor_sync(FULL, mine, 1);\n"
+                      "      const float tot = half + __shfl_xor_sync(FULL, half, 6);",
+                      "      const float tot = mine;")],
+    "band_no_output": [("    table_to_out(table, c.wx, c.wy, inv_sqrt_d, o + l * (K * K), lane);",
+                        "    if (lane == 0) o[l * (K * K)] = table[0] + table[K1 * K1 - 1];")],
 }
+VARIANTS["band_skeleton"] = VARIANTS["band_no_products"] + VARIANTS["band_no_loads"]
 
 
 def start_build(name: str, subs) -> tuple:
@@ -96,7 +123,7 @@ def main() -> int:
         want = C.corr_lookup_plain(f1, stored, coords)
         for n in order:
             build._loaded["corr_lookup"] = libs[n]
-            for body in ("shared", "resident"):
+            for body in C.BODIES:
                 got = C.corr_lookup_cuda(f1, stored, coords, body=body)
                 torch.cuda.synchronize()
                 ms = S.cuda_ms(lambda: C.corr_lookup_cuda(f1, stored, coords, body=body))
