@@ -68,7 +68,15 @@ Phases (any failure exits non-zero before the result line):
      stage 2 over all 170 frames; then 40 profiled steps of that group fit;
  12. the batch CLI's group mode (`cli.batch --parallel_fit`) on two 80-frame
      clips: RAFT flow with DEFLICKER_CORR_SHARED=1, one V = 2 fit with
-     DEFLICKER_IMLP_STASH=1, stage 2 through `FilterEngine.run_multi`.
+     DEFLICKER_IMLP_STASH=1, stage 2 through `FilterEngine.run_multi`;
+ 13. warm serving: one `Deflickerer` on the card (the seeded random RAFT
+     `.pth`, stage-2 weights read from `.pth` files written here from the
+     shipped `.ckpt` in the reference's layout) answers four job lines
+     through `cli.serve.serve_lines`: two 40-frame clips, the first again
+     with another seed (traced by DEFLICKER_PROFILE), and a line with an
+     unknown key; weights load once, no kernel library is built or loaded
+     after the first job, and every job's launches are counted; then
+     `cli.evaluate.main` and `cli.stage2.main` on the second clip.
 Kernel, plain and library times are device times (`cuda_ms`: each run
 queued behind a sleep kernel, so no host work is inside the events);
 `call_ms` beside a kernel's is one call from an idle device, the wrapper's
@@ -125,6 +133,9 @@ LONG_FRAMES = 170           # the chunked phase's clip
 LONG_CAP = 80               # its maximum_number_of_frames (default 200)
 ITERS_MULTI = 100           # fit steps of the chunked and batch phases
 PRETRAIN_MULTI = 25         # pretrain sweeps there (default 100)
+SERVE_FRAMES = 40            # the serve phase's clips
+ITERS_SERVE = 100           # fit steps of each served job
+PRETRAIN_SERVE = 25         # pretrain sweeps there (default 100)
 CORR_SPREADS = (0.5, 3.0, 40.0)
 VIDEOS = 3                  # video axis of the batched chain phase
 SLEEP_CYCLES = 4_000_000    # cuda_ms's sleep kernel: about 2 ms at the H100's clocks
@@ -1356,6 +1367,185 @@ def phase_batch(device):
     return launches
 
 
+def write_stage2_pth(folder: Path) -> tuple:
+    """`neural_filter.pth` and `local_refinement_net.pth` in the reference's
+    layout, from the shipped `.ckpt`: the modules' state dicts under
+    DataParallel's `module.` keys, and in the TransformNet's file the
+    running stats of an InstanceNorm the reference saves and never applies."""
+    import torch
+
+    from deflicker_torch.models.refine import TransformNet
+    from deflicker_torch.models.unet import UNet
+    from deflicker_torch.utils.convert import load_stage2_module
+
+    folder.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for module, name in ((UNet(), "neural_filter"),
+                         (TransformNet(), "local_refinement_net")):
+        sd = load_stage2_module(module, ROOT / "pretrained_weights"
+                                / f"{name}.ckpt").state_dict()
+        state = {f"module.{k}": v for k, v in sd.items()}
+        if name == "local_refinement_net":
+            n = sd["conv1a.conv2d.weight"].shape[0]
+            state["module.conv1a.norm_layer.running_mean"] = torch.zeros(n)
+            state["module.conv1a.norm_layer.running_var"] = torch.ones(n)
+        paths.append(folder / f"{name}.pth")
+        torch.save(state, paths[-1])
+    return tuple(paths)
+
+
+def phase_serve(device) -> dict:
+    """Warm serving through `Deflickerer` and `cli.serve.serve_lines`: four
+    job lines (clip A, clip B, clip A again with another seed under
+    DEFLICKER_PROFILE, a line with an unknown key) at the default widths
+    and batch, RAFT from the seeded random `.pth`, stage 2 from `.pth`
+    files.  Counts the loads of the warm state and each job's launches;
+    then `cli.evaluate.main` and `cli.stage2.main` on clip B."""
+    import io
+
+    import torch
+
+    import deflicker_torch.cli.pipeline as tpipe
+    import deflicker_torch.filter as tfilter
+    from deflicker_torch import Deflickerer
+    from deflicker_torch.cli import evaluate, serve, stage2
+    from deflicker_torch.config import AtlasConfig
+    from deflicker_torch.io.media import list_frames
+    from deflicker_torch.ops.cuda import build
+
+    root = WORK / "data_serve"
+    results = WORK / "results_serve"
+    for seed, name in ((5, "clipa"), (6, "clipb")):
+        make_clip(root / name, seed=seed, T=SERVE_FRAMES)
+    fpath, lpath = write_stage2_pth(WORK / "weights_serve")
+    solves = -(-(SERVE_FRAMES - 1) // PAIR_BATCH)
+
+    loads = {"load_filter_engine": 0, "make_flow_provider": 0, "build": 0}
+    originals = [(tfilter, "load_filter_engine"), (tpipe, "make_flow_provider"),
+                 (build, "build")]
+
+    def counted(key, fn):
+        def wrapper(*args, **kwargs):
+            loads[key] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    saved = [getattr(m, a) for m, a in originals]
+    for (m, a), fn in zip(originals, saved):
+        setattr(m, a, counted(a, fn))
+    try:
+        d = Deflickerer(ckpt_raft=str(WORK / "raft-random.pth"),
+                        ckpt_filter=str(fpath), ckpt_local=str(lpath),
+                        root=str(root), results_root=str(results),
+                        device=device)
+        d.atlas_cfg = dataclasses.replace(AtlasConfig(),
+                                          pretrain_iter_number=PRETRAIN_SERVE)
+        jobs = []
+        process = d.process
+
+        def process_counted(**job):
+            before = read_counters()
+            out = process(**job)
+            torch.cuda.synchronize(device)
+            after = read_counters()
+            jobs.append({"launches": {k: after[k] - before[k] for k in after
+                                      if after[k] != before[k]},
+                         "loads": dict(loads),
+                         "libraries": dict(build._loaded)})
+            return out
+
+        d.process = process_counted
+        a, b = str(root / "clipa"), str(root / "clipb")
+        lines = [json.dumps({"frame_folder": a, "iters": ITERS_SERVE}),
+                 json.dumps({"frame_folder": b, "iters": ITERS_SERVE}),
+                 json.dumps({"frame_folder": a, "iters": ITERS_SERVE, "seed": 7}),
+                 json.dumps({"frame_folder": b, "priority": 1})]
+        prof = WORK / "profile_serve"
+        print(f"[serve] Deflickerer on {device}, {SERVE_FRAMES}-frame clips "
+              f"{CLIP[1]}x{CLIP[2]} (fit at /4), default widths, batch "
+              f"{d.atlas_cfg.samples_batch}, RAFT random weights, stage 2 from "
+              f".pth; cut: iters_num 10001 -> {ITERS_SERVE}, "
+              f"pretrain_iter_number 100 -> {PRETRAIN_SERVE}; job 3 under "
+              "DEFLICKER_PROFILE", flush=True)
+        buf = io.StringIO()
+        reset_counters()
+        n = serve.serve_lines(d, lines[:2], out=buf)
+        with env(DEFLICKER_PROFILE=str(prof)):
+            n += serve.serve_lines(d, lines[2:], out=buf)
+        launches = read_counters()
+    finally:
+        for (m, a), fn in zip(originals, saved):
+            setattr(m, a, fn)
+
+    res = [json.loads(line) for line in buf.getvalue().splitlines()]
+    if n != 4 or [r["ok"] for r in res] != [True, True, True, False] \
+            or "unknown job keys: ['priority']" not in res[3]["error"]:
+        raise AssertionError(f"serve results {res}")
+    for r in res[:3]:
+        for key in ("psnr", "final_psnr", "final_ewarp", "input_ewarp"):
+            if not math.isfinite(r.get(key, float("nan"))):
+                raise AssertionError(f"{key} missing or not finite: {r}")
+    # warm state: weights loaded by job 1 only, no library built or loaded
+    # after it
+    first, last = jobs[0], jobs[-1]
+    if last["loads"] != {"load_filter_engine": 1, "make_flow_provider": 1,
+                         "build": first["loads"]["build"]} \
+            or any(last["libraries"][k] is not v
+                   for k, v in first["libraries"].items()) \
+            or set(last["libraries"]) != set(first["libraries"]):
+        raise AssertionError(f"warm state reloaded: {jobs}")
+    # each job fits 2 networks x ITERS_SERVE steps; jobs 1-2 solve the flow
+    # of their clip, job 3 reads clip A's flow from disk
+    per = 2 * ITERS_SERVE
+    want_jobs = [{"fwd": per, "bwd": per, "lookup": RAFT_ITERS * solves},
+                 {"fwd": per, "bwd": per, "lookup": RAFT_ITERS * solves},
+                 {"fwd": per, "bwd": per}]
+    if [j["launches"] for j in jobs] != want_jobs:
+        raise AssertionError(f"per-job launches {[j['launches'] for j in jobs]}")
+    want = {"fwd": 3 * per, "bwd": 3 * per, "lookup": 2 * RAFT_ITERS * solves}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"launches {launches}, want {want}")
+    traces = sorted(prof.glob("*.pt.trace.json"))
+    if not traces:
+        raise AssertionError(f"DEFLICKER_PROFILE wrote no trace in {prof}")
+
+    keys = ("wall_s", "iters_per_sec", "t_flow", "t_pretrain", "t_fit",
+            "t_render", "t_stage2", "t_total", "psnr", "final_psnr",
+            "final_ewarp", "input_ewarp")
+    for k, (r, j) in enumerate(zip(res, jobs)):
+        print(f"[serve] job {k + 1}" + (" (cold)" if k == 0 else " (warm)")
+              + (" profiled" if k == 2 else "") + " "
+              + json.dumps({**{x: r[x] for x in keys}, "launches": j["launches"]}),
+              flush=True)
+    print(f"[serve] error line: {res[3]['error']!r}", flush=True)
+
+    # the stage CLIs on clip B, whose results no later job rewrote
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        evaluate.main(["--video_name", "clipb", "--root", str(root),
+                       "--results_root", str(results)], device=device)
+    m = json.loads(out.getvalue().strip().splitlines()[-1])
+    if m["psnr_mean"] != res[1]["final_psnr"] or m["num_frames"] != SERVE_FRAMES:
+        raise AssertionError(f"evaluate {m} against job 2 {res[1]['final_psnr']}")
+    t0 = time.time()
+    stage2.main(["--video_name", "clipb", "--root", str(root),
+                 "--results_root", str(results), "--ckpt_filter", str(fpath),
+                 "--ckpt_local", str(lpath)], device=device)
+    t_stage2_cli = time.time() - t0
+    final = list_frames(results / "clipb" / "final" / "output")
+    if len(final) != SERVE_FRAMES:
+        raise AssertionError(f"stage2 CLI wrote {len(final)} final frames")
+    summary = {
+        "cold_wall_s": res[0]["wall_s"],
+        "warm_wall_s": [r["wall_s"] for r in res[1:3]],
+        "loads": last["loads"], "launches": launches, "solves_per_job": solves,
+        "trace_mb": sum(t.stat().st_size for t in traces) / 2 ** 20,
+        "evaluate_psnr_mean": m["psnr_mean"], "evaluate_ewarp_mean":
+        m.get("ewarp_mean"), "stage2_cli_s": t_stage2_cli}
+    print("[serve] " + json.dumps(summary), flush=True)
+    return launches
+
+
 def device_events(prof):
     """Device-side events of a torch.profiler run (kernels, copies), summed
     by name: [(microseconds, count, name)], longest first."""
@@ -1502,6 +1692,9 @@ def main() -> int:
     t1 = time.time()
     batch_launches = phase_batch(device)
     print(f"[batch] wall {time.time() - t1:.1f} s", flush=True)
+    t1 = time.time()
+    phase_serve(device)
+    print(f"[serve] wall {time.time() - t1:.1f} s", flush=True)
 
     src = "deflicker_torch/csrc/imlp_chain.cu"
     replaces = {"fwd": "deflicker_tpu/ops/pallas/imlp_kernel.py:421",

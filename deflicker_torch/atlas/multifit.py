@@ -210,8 +210,9 @@ def fit_group(datas: Sequence[VideoData], specs: AtlasSpecs,
     """One V-batched fit of same-shaped videos, as the chunked pipeline and
     the batch CLI run it: stack the videos, init the V networks of each
     kind and pretrain the mappings (or take params, Adam moments and the fit
-    generator's state from `resume`, a group checkpoint's dict), then
-    `fit_atlas_multi`.  `generators` is the pipeline's (init, pretrain
+    generator's state from `resume`, a group checkpoint's dict; the JAX
+    package's has no generator state, so the generator keeps its seed),
+    then `fit_atlas_multi`.  `generators` is the pipeline's (init, pretrain
     mapping1, fit, pretrain mapping2).  Returns {"results": one FitResult
     per video, "start_iteration", "t_pretrain", "t_fit"}."""
     g_init, g_pre, g_fit, g_pre2 = generators
@@ -221,7 +222,8 @@ def fit_group(datas: Sequence[VideoData], specs: AtlasSpecs,
     if resume is not None:
         params_v = atlas_params_from_jax(resume["params_v"], device)
         opt_state_v = resume["opt_state_v"]
-        g_fit.set_state(torch.as_tensor(resume["generator_state"]))
+        if resume.get("generator_state") is not None:
+            g_fit.set_state(torch.as_tensor(resume["generator_state"]))
         start_iteration = int(resume["iteration"])
     else:
         start_iteration, opt_state_v = 0, None

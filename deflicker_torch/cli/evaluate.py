@@ -1,5 +1,10 @@
 """Evaluation: PSNR + E_warp (the paper's temporal-consistency metric) of a
-processed video, as `run_pipeline` reports them.
+processed video, as `run_pipeline` reports them, and its CLI:
+
+    python -m deflicker_torch.cli.evaluate --video_name X
+        [--target final] [--root data/test/] [--results_root results] [--gpu N]
+
+which prints one JSON line of the metrics (computed on `cuda:N`).
 
 E_warp follows the reference's (dead-code) recipe — occlusion-masked mean
 squared warp error between consecutive frames using the cached flow
@@ -9,6 +14,8 @@ measured between the processed frames and the originals.
 
 from __future__ import annotations
 
+import argparse
+import json
 from pathlib import Path
 
 import numpy as np
@@ -80,3 +87,34 @@ def compute_video_metrics(frames_dir: Path, processed_dir: Path,
         out["ewarp_x100"] = float(np.mean(ewarps) * 100.0)
     return out
 
+
+def main(argv=None, device=None) -> int:
+    """`device` overrides `cuda:<--gpu>` (the tests pass "cpu")."""
+    from ..utils.device import resolve_device
+
+    p = argparse.ArgumentParser(description="PSNR + E_warp evaluation")
+    p.add_argument("--video_name", required=True, type=str)
+    p.add_argument("--root", default="data/test/", type=str)
+    p.add_argument("--results_root", default="results", type=str)
+    p.add_argument("--target", default="final",
+                   choices=["final", "stage_1", "neural_filter", "input"],
+                   help="which output to evaluate (input = the original)")
+    p.add_argument("--gpu", type=int, default=0,
+                   help="CUDA device index: computes on cuda:N")
+    args = p.parse_args(argv)
+    device = resolve_device(f"cuda:{args.gpu}" if device is None else device)
+
+    frames_dir = Path(args.root) / args.video_name
+    results = Path(args.results_root) / args.video_name
+    processed = {"input": frames_dir,
+                 "stage_1": results / "stage_1" / "output",
+                 "neural_filter": results / "neural_filter" / "output",
+                 "final": results / "final" / "output"}[args.target]
+    out = compute_video_metrics(frames_dir, processed, device=device)
+    out["target"] = args.target
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -13,7 +13,9 @@ rendered, and stage 2 runs unbroken over the whole video.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import shutil
 import time
 from pathlib import Path
@@ -28,7 +30,7 @@ from ..atlas import (build_specs, evaluate_and_save, export_atlas_artifacts,
 from ..config import AtlasConfig, PipelineConfig, load_atlas_config
 from ..flow import FarnebackFlow, RAFTFlow, preprocess_optical_flow
 from ..io.media import list_frames, read_image, video_to_frames
-from ..utils.checkpoint import load_checkpoint
+from ..utils.checkpoint import host_adam_state, load_checkpoint
 from ..utils.convert import atlas_params_from_jax
 from ..utils.device import (resolve_device, set_fp32_matmul_precision,
                             synchronize)
@@ -125,8 +127,10 @@ def _run_stage1_chunked(frames_dir: Path, atlas_cfg: AtlasConfig,
     generator's state) is written to `<stage_1>/checkpoint` at the eval
     cadence and at the fit's end; with `load_checkpoint` set, a checkpoint
     of the same chunking resumes the group fit and replays the
-    uninterrupted run's samples.  Only the port's own numpy checkpoints
-    load; one written by the JAX package is refused."""
+    uninterrupted run's samples.  A group checkpoint of the JAX package
+    (`opt_state_v`, `key_data`) resumes its params, Adam moments and
+    iteration; its JAX PRNG state cannot be replayed here, so the samples
+    restart from the port's fit generator."""
     from ..atlas.multifit import fit_group, save_group
     from ..utils.checkpoint import save_checkpoint
 
@@ -153,15 +157,24 @@ def _run_stage1_chunked(frames_dir: Path, atlas_cfg: AtlasConfig,
     if atlas_cfg.load_checkpoint:
         path = Path(atlas_cfg.checkpoint_path or ckpt_file)
         if path.exists():
-            c = load_checkpoint(path)      # refuses a JAX-package checkpoint
-            if "generator_state" not in c or "params_v" not in c:
-                raise ValueError(f"{path} is not a chunked-fit checkpoint of "
-                                 "this package (no generator_state/params_v)")
+            c = load_checkpoint(path)
+            if "params_v" not in c or not ("generator_state" in c
+                                           or "key_data" in c):
+                raise ValueError(f"{path} is not a chunked-fit checkpoint "
+                                 "(no params_v, or neither generator_state "
+                                 "nor key_data)")
+            jax_group = "generator_state" not in c
             if list(c.get("chunk_starts", [])) == list(starts) \
                     and c.get("chunk_size") == size:
-                resume = c
+                resume = dict(c, opt_state_v=host_adam_state(
+                    c.get("opt_state_v"), c["params_v"]))
                 print(f"[deflicker_torch] resuming the chunked fit at "
                       f"iteration {int(c['iteration'])} from {path}")
+                if jax_group:
+                    print("[deflicker_torch] the JAX package's PRNG state "
+                          "(key_data) cannot be replayed: params, Adam "
+                          "moments and iteration resume, samples restart "
+                          "from this package's fit generator")
             else:
                 print(f"[deflicker_torch] checkpoint {path} does not match "
                       f"this chunking ({c.get('chunk_starts')} vs {starts}) — "
@@ -203,6 +216,23 @@ def _run_stage1_chunked(frames_dir: Path, atlas_cfg: AtlasConfig,
             "chunks": n}
 
 
+def fit_profiler(device: torch.device):
+    """DEFLICKER_PROFILE=<dir>: a torch.profiler window over the fit (host
+    activity, and the card's where the fit runs on one) whose Chrome trace
+    is written under <dir> when it closes; unset, no profiler."""
+    prof_dir = os.environ.get("DEFLICKER_PROFILE")
+    if not prof_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(prof_dir))
+
+
 def run_stage1(frames_dir: Path, cfg: PipelineConfig,
                atlas_cfg: AtlasConfig, device, dual: bool = False,
                results_root: Optional[Path] = None,
@@ -213,7 +243,10 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
     atlas, and exports the fg/bg textures after the final render.  Videos
     longer than `maximum_number_of_frames` take the chunked path
     (`_run_stage1_chunked`) instead of the reference's truncation;
-    `iters_per_sec` then counts video-iterations (chunks x steps)."""
+    `iters_per_sec` then counts video-iterations (chunks x steps).  With
+    `load_checkpoint` and `checkpoint_path` set, the fit resumes from a
+    checkpoint of this package or of the JAX package.  DEFLICKER_PROFILE
+    traces the fit (`fit_profiler`)."""
     device = torch.device(device)
     t0 = time.time()
     if flow_provider is None:
@@ -250,9 +283,10 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
     opt_state = None
     t_pretrain = 0.0          # stays 0 on the resume branch (no pretrain)
     if atlas_cfg.load_checkpoint and atlas_cfg.checkpoint_path:
+        # the port's own checkpoint or the JAX package's (optax Adam state)
         ckpt = load_checkpoint(atlas_cfg.checkpoint_path)
         params = atlas_params_from_jax(ckpt["params"], device)
-        opt_state = ckpt.get("opt_state")
+        opt_state = host_adam_state(ckpt.get("opt_state"), ckpt["params"])
         start_iteration = int(ckpt["iteration"])
     else:
         params = init_models(specs, g_init, device)
@@ -274,13 +308,14 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
         evaluate_and_save(p, specs, data, atlas_cfg, results_folder,
                           iteration, opt)
 
-    t2 = time.time()
-    result = fit_atlas(params, specs, data, atlas_cfg, g_fit,
-                       start_iteration=start_iteration, opt_state=opt_state,
-                       eval_callback=eval_cb,
-                       log_callback=lambda i, rec: logger.log(i, rec))
-    synchronize(device)
-    t_fit = time.time() - t2
+    with fit_profiler(device):
+        t2 = time.time()
+        result = fit_atlas(params, specs, data, atlas_cfg, g_fit,
+                           start_iteration=start_iteration,
+                           opt_state=opt_state, eval_callback=eval_cb,
+                           log_callback=lambda i, rec: logger.log(i, rec))
+        synchronize(device)
+        t_fit = time.time() - t2        # the trace's export is not in it
 
     # final render (the reference's eval at iteration iters_num-1 == 10000)
     t3 = time.time()

@@ -404,18 +404,14 @@ def load_filter_engine(ckpt_filter: Optional[str | Path],
                        ckpt_local: Optional[str | Path], device="cuda",
                        dtype=torch.float32, batch: int = 16, seed: int = 2023,
                        unpad: str = "crop") -> FilterEngine:
-    """A FilterEngine from the shipped `.ckpt` weights (pickled flax trees,
-    converted by utils/convert.stage2_from_flax).  A torch `.pth` of the
-    reference is not read yet; missing weights fall back to seeded random
-    init (smoke runs only)."""
+    """A FilterEngine from the reference's `.pth` weights (filter/convert.py)
+    or the shipped `.ckpt` files (pickled flax trees, converted by
+    utils/convert.stage2_from_flax).  Missing weights fall back to seeded
+    random init (smoke runs only)."""
     from ..utils.convert import load_stage2_module
 
     fpath = _resolve_ckpt(ckpt_filter)
     lpath = _resolve_ckpt(ckpt_local)
-    for p in (fpath, lpath):
-        if p is not None and p.suffix != ".ckpt":
-            raise NotImplementedError(f"{p}: reading the reference's .pth "
-                                      "stage-2 weights is not ported yet")
     if fpath is None or lpath is None:
         print("[deflicker_torch] stage-2 checkpoint(s) missing "
               f"({ckpt_filter} / {ckpt_local}) — using RANDOM weights "

@@ -73,11 +73,18 @@ def stage2_from_flax(tree: Mapping, skip_substr=("norm",)) -> Dict[str, torch.Te
 
 
 def load_stage2_module(module: torch.nn.Module, path: str | Path) -> torch.nn.Module:
-    """Load a shipped `.ckpt` (pickled flax tree of numpy) into `module`;
+    """Load stage-2 weights into `module`: the reference's torch `.pth`/`.pt`
+    (filter/convert.py) or a shipped `.ckpt` (pickled flax tree of numpy);
     every key must match (strict)."""
-    from .checkpoint import load_checkpoint
+    if Path(path).suffix in (".pth", ".pt"):
+        from ..filter.convert import read_stage2_pth
 
-    module.load_state_dict(stage2_from_flax(load_checkpoint(path)), strict=True)
+        state = read_stage2_pth(path)
+    else:
+        from .checkpoint import load_checkpoint
+
+        state = stage2_from_flax(load_checkpoint(path))
+    module.load_state_dict(state, strict=True)
     return module
 
 

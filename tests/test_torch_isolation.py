@@ -112,6 +112,26 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         batch.run_batch_parallel([], SimpleNamespace(class_name=None,
                                                      results_root=str(tmp_path)),
                                  None)
+    # the warm server and the per-stage CLIs
+    from deflicker_torch import Deflickerer
+    from deflicker_torch.cli import evaluate, serve, stage1, stage2
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Deflickerer().process(frame_folder=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--max_jobs", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stage1.main(["--vid_name", "vid", "--root", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stage1.main(["--vid_name", "vid", "--root", str(tmp_path), "--class_name",
+                     "dog", "--mask_provider", "grabcut"])   # the dual path
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stage2.main(["--video_name", "vid", "--root", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate.main(["--video_name", "vid", "--root", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert_weights.main(["--kind", "filter", "--src", str(ckpt),
+                              "--dst", str(tmp_path / "out.ckpt")])
     assert resolve_device("cpu").type == "cpu"
 
 

@@ -246,10 +246,13 @@ def test_checkpoints_load_through_both_packages(variables, model, tmp_path):
     torch.save(missing, tmp_path / "short.pth")
     with pytest.raises(RuntimeError, match="Missing key"):
         tconvert.load_raft_checkpoint(tmp_path / "short.pth")
+    # --kind filter|local now read a stage-2 `.pth` (test_torch_stage2_pth.py);
+    # the strict load refuses a RAFT file given as one
     for kind in ("filter", "local"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            convert_weights.main(["--kind", kind, "--src", "a", "--dst", "b"],
-                                 device="cpu")
+        with pytest.raises(RuntimeError, match="Missing key"):
+            convert_weights.main(["--kind", kind, "--src",
+                                  str(tmp_path / "raft.pth"), "--dst",
+                                  str(tmp_path / f"{kind}.ckpt")], device="cpu")
 
 
 @pytest.fixture
