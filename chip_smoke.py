@@ -76,7 +76,19 @@ Phases (any failure exits non-zero before the result line):
      with another seed (traced by DEFLICKER_PROFILE), and a line with an
      unknown key; weights load once, no kernel library is built or loaded
      after the first job, and every job's launches are counted; then
-     `cli.evaluate.main` and `cli.stage2.main` on the second clip.
+     `cli.evaluate.main` and `cli.stage2.main` on the second clip;
+ 14. stage-2 training: `cli.train_stage2.main` at the published widths and
+     the JAX CLI's defaults (UNet 32 features, TransformNet nf 32 with 5
+     blocks, 128x128, batch 8, clips 2 x 6, lr 2e-4 constant, bf16, seed
+     0), only the schedule cut (200 filter and 100 refiner steps, chunks
+     of 25); no chain or lookup kernel may launch.  Every chunk's losses
+     finite, each net's last chunk below its first, the checkpoints loaded
+     by `load_filter_engine` and run by `cli.stage2.main` on the serve
+     phase's second clip; steps/s, then 20 filter and 10 refiner steps
+     under torch.profiler; then held-out quality of the shipped weights on
+     8 procedural clips of 12x128x128 (`filter_frames`, `refine_sequence`):
+     filtered PSNR at least input + 10 dB, refined temporal error below
+     the input's.
 Kernel, plain and library times are device times (`cuda_ms`: each run
 queued behind a sleep kernel, so no host work is inside the events);
 `call_ms` beside a kernel's is one call from an idle device, the wrapper's
@@ -138,6 +150,12 @@ ITERS_SERVE = 100           # fit steps of each served job
 PRETRAIN_SERVE = 25         # pretrain sweeps there (default 100)
 CORR_SPREADS = (0.5, 3.0, 40.0)
 VIDEOS = 3                  # video axis of the batched chain phase
+TRAIN_SHAPE = {"size": 128, "batch": 8, "clip_len": 6, "clip_batch": 2}  # the CLI's defaults
+TRAIN_FILTER_STEPS = 200    # stage-2 training: filter steps (CLI default 4000)
+TRAIN_REFINE_STEPS = 100    # refiner steps (CLI default 1500)
+TRAIN_PER_CALL = 25         # steps a chunk (CLI default 50)
+HELDOUT = (8, 12, 128, 128)  # held-out clips x frames x height x width
+HELDOUT_SEED = 10_000       # their generator's seed (no training stream uses it)
 SLEEP_CYCLES = 4_000_000    # cuda_ms's sleep kernel: about 2 ms at the H100's clocks
 
 
@@ -1546,14 +1564,180 @@ def phase_serve(device) -> dict:
     return launches
 
 
+def temporal_err(x, clip) -> float:
+    """Mean over t of |x_t - warp(x_{t-1}, flow_t)| on the clip's valid
+    pixels (bench_e2e's exact-flow temporal error)."""
+    from deflicker_torch.ops.sampling import flow_warp
+
+    errs = [float(((x[t] - flow_warp(x[t - 1], clip.flow_bw[t])).abs()
+                   * clip.valid[t]).sum() / (clip.valid[t].sum() * 3))
+            for t in range(1, x.shape[0])]
+    return float(np.mean(errs))
+
+
+def phase_train(device) -> dict:
+    """Stage-2 training on the card through `cli.train_stage2.main`, its
+    checkpoints run by `cli.stage2`, a profile of its steps, and the
+    held-out quality of the shipped weights."""
+    import io
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deflicker_torch.cli import stage2, train_stage2
+    from deflicker_torch.filter import (filter_frames, load_filter_engine,
+                                        refine_sequence)
+    from deflicker_torch.io.media import list_frames, read_image
+    from deflicker_torch.metrics import psnr
+    from deflicker_torch.models import transformnet_init, unet_init
+    from deflicker_torch.train.stage2_trainer import (TrainConfig, _ClipSource,
+                                                      _filter_loss,
+                                                      _make_optimizer,
+                                                      _refiner_loss, _step)
+    from deflicker_torch.train.synth import make_clip as synth_clip
+
+    out_dir = WORK / "train"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shape = [a for k, v in TRAIN_SHAPE.items() for a in (f"--{k}", str(v))]
+    args = ["--out_dir", str(out_dir), *shape, "--lr", "2e-4",
+            "--lr_schedule", "constant", "--dtype", "bfloat16", "--seed", "0",
+            "--filter_steps", str(TRAIN_FILTER_STEPS),
+            "--refine_steps", str(TRAIN_REFINE_STEPS),
+            "--steps_per_call", str(TRAIN_PER_CALL)]
+    print(f"[train] cli.train_stage2 on {device}: UNet(6, 3, 32), "
+          f"TransformNet(32, 5), {' '.join(shape)}, lr 2e-4 constant, bf16, "
+          "seed 0; cut: filter_steps 4000 -> "
+          f"{TRAIN_FILTER_STEPS}, refine_steps 1500 -> {TRAIN_REFINE_STEPS}, "
+          f"steps_per_call 50 -> {TRAIN_PER_CALL}", flush=True)
+    buf = io.StringIO()
+    reset_counters()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        train_stage2.main(args, device=None)
+    torch.cuda.synchronize()
+    t_train = time.time() - t0
+    launches = read_counters()
+    print(buf.getvalue(), end="", flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"training launched chain or lookup kernels: "
+                             f"{launches}")
+
+    # the run: finite chunks, each net's last chunk below its first
+    rows = [json.loads(line) for line in
+            (out_dir / "scalars.jsonl").read_text().splitlines()]
+    summary = {"t_train_s": t_train}
+    for net, steps, keys in (("filter", TRAIN_FILTER_STEPS, ("rec", "grad")),
+                             ("refiner", TRAIN_REFINE_STEPS, ("rec", "temp"))):
+        r = [x for x in rows if x["net"] == net]
+        if [x["step"] for x in r] != list(range(TRAIN_PER_CALL, steps + 1,
+                                                TRAIN_PER_CALL)):
+            raise AssertionError(f"{net} chunks {[x['step'] for x in r]}")
+        if not all(math.isfinite(x[k]) for x in r for k in ("total",) + keys):
+            raise AssertionError(f"{net} losses not finite: {r}")
+        if not r[-1]["total"] < r[0]["total"]:
+            raise AssertionError(f"{net} loss did not descend: "
+                                 f"{[x['total'] for x in r]}")
+        summary[f"{net}_total_first_last"] = [r[0]["total"], r[-1]["total"]]
+    # steps/s from the CLI's chunk lines, the first chunk of each net left
+    # out (cuDNN's first calls, the filter checkpoint's write)
+    for net in ("filter", "refiner"):
+        rates = [float(line.rsplit("(", 1)[1].split()[0])
+                 for line in buf.getvalue().splitlines()
+                 if line.startswith(f"[{net}] step")]
+        summary[f"{net}_steps_per_s"] = float(np.mean(rates[1:]))
+    fpath, lpath = out_dir / "neural_filter.ckpt", out_dir / "local_refinement_net.ckpt"
+    load_filter_engine(fpath, lpath, device=device)
+
+    # the trained checkpoints through the stage-2 CLI, on the serve phase's
+    # second clip (its stage-1 output copied under a fresh results root)
+    results = out_dir / "results"
+    shutil.copytree(WORK / "results_serve" / "clipb" / "stage_1",
+                    results / "clipb" / "stage_1")
+    stage2.main(["--video_name", "clipb", "--root", str(WORK / "data_serve"),
+                 "--results_root", str(results), "--ckpt_filter", str(fpath),
+                 "--ckpt_local", str(lpath)], device=device)
+    final = list_frames(results / "clipb" / "final" / "output")
+    if len(final) != SERVE_FRAMES:
+        raise AssertionError(f"stage2 CLI wrote {len(final)} final frames")
+    img = read_image(final[-1])
+    if not (np.isfinite(img).all() and img.std() > 0):
+        raise AssertionError("the trained stage 2 wrote a flat or non-finite frame")
+    summary["stage2_cli_frames"] = len(final)
+    print("[train] " + json.dumps(summary), flush=True)
+
+    # profile: 20 filter and 10 refiner steps of the same configuration
+    size = TRAIN_SHAPE["size"]
+    cfg = TrainConfig(height=size, width=size, batch=TRAIN_SHAPE["batch"],
+                      clip_len=TRAIN_SHAPE["clip_len"],
+                      clip_batch=TRAIN_SHAPE["clip_batch"], dtype="bfloat16")
+    gen = torch.Generator().manual_seed(0)
+    unet = unet_init(gen).to(device)
+    tnet = transformnet_init(gen).to(device)
+    for tag, net, n, B, T, loss in (
+            ("train-profile-filter", unet, 20, cfg.batch, 1,
+             lambda batch: _filter_loss(unet, batch, cfg)),
+            ("train-profile-refiner", tnet, 10, cfg.clip_batch, cfg.clip_len,
+             lambda batch: _refiner_loss(tnet, unet, batch, cfg))):
+        opt = _make_optimizer(net, cfg)
+        clips = _ClipSource(cfg, None, 0, device)
+
+        def steps(k):
+            for _ in range(k):
+                batch = clips(B, T)
+                _step(opt, cfg.learning_rate, lambda: loss(batch))
+            torch.cuda.synchronize()
+
+        steps(3)
+        t0 = time.time()
+        steps(n)
+        wall_plain = time.time() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            steps(n)
+            wall = time.time() - t0
+        report_profile(tag, "step", n, wall_plain, wall, prof)
+
+    # held-out quality of the shipped weights (bench_e2e.bench_trained_stage2)
+    n_clips, T, H, W = HELDOUT
+    wdir = ROOT / "pretrained_weights"
+    eng = load_filter_engine(wdir / "neural_filter.ckpt",
+                             wdir / "local_refinement_net.ckpt", device=device)
+    gen = torch.Generator(device).manual_seed(HELDOUT_SEED)
+    rows = []
+    for _ in range(n_clips):
+        clip = synth_clip(gen, T, H, W)
+        P = filter_frames(eng.unet, clip.inp, clip.atlas)
+        O = refine_sequence(eng.tnet, P).clamp(0.0, 1.0)
+        clean = clip.clean.cpu().numpy()
+        rows.append({
+            "psnr_input": psnr(clip.inp.cpu().numpy(), clean),
+            "psnr_filtered": psnr(P.clamp(0.0, 1.0).cpu().numpy(), clean),
+            "psnr_refined": psnr(O.cpu().numpy(), clean),
+            "temp_input": temporal_err(clip.inp, clip),
+            "temp_refined": temporal_err(O, clip),
+            "temp_clean": temporal_err(clip.clean, clip)})
+    quality = {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
+    print("[train] held-out, shipped weights " + json.dumps(
+        {"clips": n_clips, "shape": f"{T}x{H}x{W}", **quality}), flush=True)
+    if not quality["psnr_filtered"] >= quality["psnr_input"] + 10.0:
+        raise AssertionError(f"shipped filter gains < 10 dB: {quality}")
+    if not quality["temp_refined"] < quality["temp_input"]:
+        raise AssertionError(f"refined not steadier than the input: {quality}")
+    return {**summary, **quality}
+
+
 def device_events(prof):
     """Device-side events of a torch.profiler run (kernels, copies), summed
-    by name: [(microseconds, count, name)], longest first."""
+    by name: [(microseconds, count, name)], longest first.  User
+    annotations on the device's timeline (`Optimizer.step#Adam.step`) span
+    kernels already counted, so they are left out."""
     from torch.autograd import DeviceType
 
     by_name = {}
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        if (ev.device_type == DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
             us, n = by_name.get(ev.name, (0.0, 0))
             by_name[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
     return sorted(((us, n, name) for name, (us, n) in by_name.items()),
@@ -1695,6 +1879,9 @@ def main() -> int:
     t1 = time.time()
     phase_serve(device)
     print(f"[serve] wall {time.time() - t1:.1f} s", flush=True)
+    t1 = time.time()
+    phase_train(device)
+    print(f"[train] wall {time.time() - t1:.1f} s", flush=True)
 
     src = "deflicker_torch/csrc/imlp_chain.cu"
     replaces = {"fwd": "deflicker_tpu/ops/pallas/imlp_kernel.py:421",

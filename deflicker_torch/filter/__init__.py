@@ -1,4 +1,5 @@
-from .engine import FilterEngine, filter_frames, load_filter_engine, refine_span
+from .engine import (FilterEngine, filter_frames, load_filter_engine,
+                     refine_sequence, refine_span)
 
 __all__ = ["FilterEngine", "filter_frames", "load_filter_engine",
-           "refine_span"]
+           "refine_sequence", "refine_span"]

@@ -90,6 +90,18 @@ def refine_span(tnet: TransformNet, carry: Tuple[torch.Tensor, torch.Tensor],
     return (o_prev, p_prev), torch.stack(outs, dim=0)
 
 
+def refine_sequence(tnet: TransformNet, preds: torch.Tensor,
+                    dtype=torch.float32) -> torch.Tensor:
+    """The whole recurrence: O_0 = P_0, O_t = P_t + TransformNet(cat(P_t,
+    O_{t-1}, P_t, P_{t-1})) (neural_filter_and_refinement.py:99-109).
+    preds: (T, H, W, 3) filtered frames.  Returns (T, H, W, 3) refined."""
+    if preds.shape[0] == 1:
+        return preds.clone()
+    p0 = preds[0]
+    _, rest = refine_span(tnet, (p0, p0), preds[1:], preds.shape[0] - 1, dtype)
+    return torch.cat([p0[None], rest], dim=0)
+
+
 @torch.no_grad()
 def refine_span_multi(tnet: TransformNet,
                       carry: Tuple[torch.Tensor, torch.Tensor],

@@ -1,9 +1,9 @@
 from .imlp import (IMLPSpec, imlp_apply, imlp_apply_fused, imlp_init,
                    positional_encoding)
 from .raft import RAFT, raft_flow, raft_init
-from .refine import TransformNet
-from .unet import UNet
+from .refine import TransformNet, transformnet_init
+from .unet import UNet, unet_init
 
 __all__ = ["IMLPSpec", "imlp_apply", "imlp_apply_fused", "imlp_init",
-           "positional_encoding", "UNet", "TransformNet", "RAFT", "raft_flow",
-           "raft_init"]
+           "positional_encoding", "UNet", "TransformNet", "unet_init",
+           "transformnet_init", "RAFT", "raft_flow", "raft_init"]

@@ -42,6 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.convex_upsample import convex_upsample_flow
+from ..ops.coords import coords_grid
 from ..ops.cuda.corr_kernel import (corr_lookup_cuda, corr_lookup_plain,
                                    select_body)
 from ..utils.device import set_fp32_matmul_precision
@@ -394,11 +395,8 @@ def raft_flow(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
     net = torch.tanh(cnet[..., :HIDDEN_DIM])
     inp = F.relu(cnet[..., HIDDEN_DIM:])
 
-    ys, xs = torch.meshgrid(
-        torch.arange(H8, dtype=torch.float32, device=fmap1.device),
-        torch.arange(W8, dtype=torch.float32, device=fmap1.device),
-        indexing="ij")
-    coords0 = torch.stack([xs, ys], dim=-1)[None].expand(B, H8, W8, 2)
+    coords0 = coords_grid(H8, W8, device=fmap1.device)[None].expand(
+        B, H8, W8, 2)
     coords1 = coords0.clone()
     for _ in range(iters):
         corr = lookup(coords1)

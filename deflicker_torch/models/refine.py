@@ -21,6 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .flax_init import init_like_flax_
+
 
 def _reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
     return F.pad(x, (p, p, p, p), mode="reflect") if p else x
@@ -123,3 +125,13 @@ class TransformNet(nn.Module):
         d1 = lrelu(self.deconv2(torch.cat([d2, e2a], 1)))
         y = self.deconv3(torch.cat([d1, e1a], 1))
         return torch.tanh(y)
+
+
+def transformnet_init(generator: torch.Generator, nf: int = 32,
+                      blocks: int = 5, nc_in: int = 12,
+                      nc_out: int = 3) -> TransformNet:
+    """A TransformNet initialized as flax initializes the JAX package's
+    (`models/flax_init.py`), from `generator`."""
+    with torch.random.fork_rng(devices=[]):     # leave the global stream
+        net = TransformNet(nf, blocks, nc_in, nc_out)
+    return init_like_flax_(net, generator)

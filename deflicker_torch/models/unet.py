@@ -16,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.convex_upsample import resize_bilinear_align_corners
+from .flax_init import init_like_flax_
 
 
 class _Block(nn.Module):
@@ -85,3 +86,12 @@ class UNet(nn.Module):
         dec2 = self.decoder2(torch.cat([self._up(self.upconv2, dec3), enc2], 1))
         dec1 = self.decoder1(torch.cat([self._up(self.upconv1, dec2), enc1], 1))
         return self.conv(dec1)
+
+
+def unet_init(generator: torch.Generator, in_channels: int = 6,
+              out_channels: int = 3, features: int = 32) -> UNet:
+    """A UNet initialized as flax initializes the JAX package's
+    (`models/flax_init.py`), from `generator`."""
+    with torch.random.fork_rng(devices=[]):     # leave the global stream
+        net = UNet(in_channels, out_channels, features)
+    return init_like_flax_(net, generator)

@@ -48,3 +48,10 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int
     top = g(y0, x0) * (1 - wx) + g(y0, x1) * wx
     bot = g(y1, x0) * (1 - wx) + g(y1, x1) * wx
     return top * (1 - wy) + bot * wy
+
+
+def upflow8(flow: torch.Tensor) -> torch.Tensor:
+    """Bilinear x8 upsampling (align_corners=True) of (N, H, W, 2) flow,
+    scaled by 8 (reference: src/models/stage_1/core/utils/utils.py:80-82)."""
+    H, W = flow.shape[1], flow.shape[2]
+    return 8.0 * resize_bilinear_align_corners(flow, 8 * H, 8 * W)

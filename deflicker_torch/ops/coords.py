@@ -1,8 +1,19 @@
-"""Coordinate helpers for the atlas fit."""
+"""Coordinate helpers: the atlas fit's normalized cube, pixel grids."""
 
 from __future__ import annotations
 
 import torch
+
+
+def coords_grid(h: int, w: int, dtype=torch.float32, device=None
+                ) -> torch.Tensor:
+    """(h, w, 2) grid of (x, y) pixel coordinates: the reference's
+    `coords_grid` content (x first, then y;
+    src/models/stage_1/core/utils/utils.py:74-77) in HWC layout."""
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=dtype, device=device),
+                            torch.arange(w, dtype=dtype, device=device),
+                            indexing="ij")
+    return torch.stack([xs, ys], dim=-1)
 
 
 def normalize_xyt(j, i, f, larger_dim: int, num_frames: int) -> torch.Tensor:

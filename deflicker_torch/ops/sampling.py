@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from .coords import coords_grid
+
 
 def _gather_2d(img: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor
                ) -> torch.Tensor:
@@ -47,8 +49,5 @@ def flow_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Backward-warp `img` (H, W, C) by `flow` (H, W, 2):
     output(p) = img(p + flow(p)), bilinear, zeros outside."""
     H, W = img.shape[0], img.shape[1]
-    ys, xs = torch.meshgrid(
-        torch.arange(H, dtype=flow.dtype, device=flow.device),
-        torch.arange(W, dtype=flow.dtype, device=flow.device), indexing="ij")
-    coords = torch.stack([xs + flow[..., 0], ys + flow[..., 1]], dim=-1)
+    coords = coords_grid(H, W, flow.dtype, flow.device) + flow
     return bilinear_sample(img, coords)

@@ -124,12 +124,14 @@ def test_evaluate_cli_prints_the_jax_keys(runs, target, capsys):
 
 def test_console_scripts_import():
     """Every `[project.scripts]` target of the port imports, and the port's
-    two scripts are there."""
+    three scripts are there."""
     with open(ROOT / "pyproject.toml", "rb") as f:
         scripts = tomllib.load(f)["project"]["scripts"]
     ours = {k: v for k, v in scripts.items() if v.startswith("deflicker_torch")}
     assert ours == {"deflicker-torch": "deflicker_torch.cli.main:main",
-                    "deflicker-torch-batch": "deflicker_torch.cli.batch:main"}
+                    "deflicker-torch-batch": "deflicker_torch.cli.batch:main",
+                    "deflicker-torch-train-stage2":
+                        "deflicker_torch.cli.train_stage2:main"}
     for target in ours.values():
         module, func = target.split(":")
         assert callable(getattr(importlib.import_module(module), func))
