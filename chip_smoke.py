@@ -88,7 +88,31 @@ Phases (any failure exits non-zero before the result line):
      under torch.profiler; then held-out quality of the shipped weights on
      8 procedural clips of 12x128x128 (`filter_frames`, `refine_sequence`):
      filtered PSNR at least input + 10 dB, refined temporal error below
-     the input's.
+     the input's;
+ 15. parallel (`deflicker_torch.parallel` on the one card): first the chain
+     pairs at one rank's shapes (5,000 and 2,500 samples a step: 2 and 4
+     ranks) and the band lookup at one rank's block of a pair batch (4 and
+     3 directions), each against its plain twin; (a) the sharded fit at
+     world size 1 under NCCL (configuration 1's data at 108x192, default
+     widths and batch, 100 steps after 10 pretrain sweeps) bit-equal to the
+     unsharded fit from the same seed, both timed after 5 warm-up steps
+     each (cuBLAS, NCCL's communicator), the all-reduce of the fit's
+     gradients timed alone, and 20 steps of each under torch.profiler, and
+     how far Adam's first update moves when one draw's gradient is summed
+     from two halves and when it comes from half the draw; (b) configuration 1's pipeline on two
+     ranks sharing the card under gloo (`parallel.launch`; NCCL refuses two
+     ranks a card): RAFT flow from the seeded random `.pth` with each pair
+     batch split, 100 fit steps with the sample batch split, the render's
+     and the U-Net's frames split; each rank's counters must read 200 + 200
+     chain launches and 20 batches x 20 lookups; the two ranks' fit
+     params must be bit-equal, and against one rank on the same flow they
+     must lie, after the first logged step, within 1e-2 of that step's
+     update (Frobenius), the first step's loss within rtol 1e-5 and the
+     stage-1 and final PSNR within 0.1 dB; every flow file within relative Frobenius 1e-2 of the
+     raft phase's one-rank solve with the same weights; (c) `cli.batch --dcn` as two
+     processes meeting at a local coordinator, the serve phase's two
+     40-frame clips, one each: hello lines, disjoint outputs.  Spawned
+     ranks and processes have a timeout; any failure fails the run.
 Kernel, plain and library times are device times (`cuda_ms`: each run
 queued behind a sleep kernel, so no host work is inside the events);
 `call_ms` beside a kernel's is one call from an idle device, the wrapper's
@@ -157,6 +181,23 @@ TRAIN_PER_CALL = 25         # steps a chunk (CLI default 50)
 HELDOUT = (8, 12, 128, 128)  # held-out clips x frames x height x width
 HELDOUT_SEED = 10_000       # their generator's seed (no training stream uses it)
 SLEEP_CYCLES = 4_000_000    # cuda_ms's sleep kernel: about 2 ms at the H100's clocks
+RANKS = 2                   # the parallel phase's ranks on the one card
+ITERS_PAR = 100             # fit steps of its world-1 and two-rank runs
+PROFILE_PAR = 20            # profiled steps of each world-1 fit
+PRETRAIN_PAR = 10           # pretrain sweeps there (default 100)
+ITERS_DCN = 50              # fit steps of each --dcn process
+PAR_TIMEOUT = 600           # seconds a spawned rank or process may take
+# two ranks against one: after the fit's first logged step the params
+# apart by at most this share of how far that step moved them (the ranks'
+# partial sums round differently, which flips the sign of an Adam step
+# only where a gradient is at rounding level; a gradient from the wrong
+# samples or one rank's half flips it for many components); and each RAFT
+# flow file apart by at most this relative Frobenius error from the
+# one-rank solve (a pair gathered into the wrong place is another pair's
+# flow).  The final params are reported, not bounded: over 100 Adam steps
+# rounding-level differences grow to a share of the fit's movement.
+FIT_RTOL_PAR = 1e-2
+FLOW_RTOL_PAR = 1e-2
 
 
 def nvidia_smi_line() -> str:
@@ -215,8 +256,9 @@ def env(**values):
                 os.environ[k] = v
 
 
-def kernel_shapes(device):
-    """The two chain calls of one fit step at the default AtlasConfig."""
+def kernel_shapes(device, samples=None):
+    """The two chain calls of one fit step at the default AtlasConfig (or
+    at `samples` a step: one rank's block of a sharded fit's batch)."""
     import torch
 
     from deflicker_torch.atlas.engine import build_specs
@@ -225,13 +267,14 @@ def kernel_shapes(device):
 
     cfg = AtlasConfig()
     specs = build_specs(cfg)
+    samples = samples or cfg.samples_batch
     gen = torch.Generator().manual_seed(0)
     out = []
     # mapping1: 9 coordinate variants x 10,000 samples, no encoding, no dx
     # needed; atlas: 3 variants x 10,000, PE 10 of 2-D uv, dx needed
     for name, spec, rows, need_dx in (
-            ("mapping1", specs.mapping1, 9 * cfg.samples_batch, False),
-            ("atlas", specs.atlas, 3 * cfg.samples_batch, True)):
+            ("mapping1", specs.mapping1, 9 * samples, False),
+            ("atlas", specs.atlas, 3 * samples, True)):
         params = imlp_init(spec, gen, device)
         x = torch.rand((rows, spec.input_dim), generator=gen) * 2 - 1
         if name == "atlas":
@@ -336,12 +379,12 @@ def print_build(logs: dict) -> None:
               f"bytes a thread, {smem} shared bytes a block{extra}", flush=True)
 
 
-def phase_chain_kernels(device) -> dict:
+def phase_chain_kernels(device, samples=None, tag="kernel") -> dict:
     import torch
 
     from deflicker_torch.ops.cuda import imlp_kernel as K
 
-    cases = kernel_shapes(device)
+    cases = kernel_shapes(device, samples)
     rows = {"fwd": [], "bwd": []}
     for case in cases:
         x, ws, bs, g, sk = case["x"], case["ws"], case["bs"], case["g"], case["skips"]
@@ -387,7 +430,7 @@ def phase_chain_kernels(device) -> dict:
                 gflop=flops / 1e9))
             if kind == "bwd":
                 rows[kind][-1]["pieces_ms"] = piece_times(K, x, wb, bs, sk, g, need_dx)
-            print(f"[kernel] {kind} {case['name']}: {rows[kind][-1]}", flush=True)
+            print(f"[{tag}] {kind} {case['name']}: {rows[kind][-1]}", flush=True)
     return rows
 
 
@@ -648,7 +691,7 @@ def corr_bound(f1, stored, coords) -> dict:
                 gflop=flops / 1e9, mbytes=nbytes / 1e6, dots=dots)
 
 
-def phase_corr_kernel(device) -> list:
+def phase_corr_kernel(device, cases=CORR_CASES, tag="kernel") -> list:
     """The band body against its plain twin, two calls bit-equal, then its
     time beside its bound, the twin and (for information: no single PyTorch
     call computes this function) the materialized path's volume build and
@@ -660,7 +703,7 @@ def phase_corr_kernel(device) -> list:
     from deflicker_torch.ops.cuda import corr_kernel as C
 
     rows = []
-    for name, B, H, W, D, spread in CORR_CASES:
+    for name, B, H, W, D, spread in cases:
         f1, f2, stored, coords = corr_case(B, H, W, D, spread, device)
         got = C.corr_lookup_cuda(f1, stored, coords)
         again = C.corr_lookup_cuda(f1, stored, coords)
@@ -690,7 +733,7 @@ def phase_corr_kernel(device) -> list:
         row["materialized_lookup_ms"] = cuda_ms(lambda: R.corr_lookup(volume, coords))
         del volume
         rows.append(row)
-        print(f"[kernel] corr {name}: {row}", flush=True)
+        print(f"[{tag}] corr {name}: {row}", flush=True)
     return rows
 
 
@@ -1727,6 +1770,349 @@ def phase_train(device) -> dict:
     return {**summary, **quality}
 
 
+@contextlib.contextmanager
+def recorded_fit():
+    """The pipeline's `fit_atlas` with the params recorded as one flat host
+    array each: "init" as the fit starts, "first" at its first logged step
+    (at "first_iteration"), "final" as it ends."""
+    import torch
+
+    import deflicker_torch.cli.pipeline as pl
+    from deflicker_torch.atlas.engine import flat_params
+
+    def flat(params):
+        return torch.cat([q.detach().reshape(-1)
+                          for q in flat_params(params)]).cpu().numpy()
+
+    store, real = {}, pl.fit_atlas
+
+    def fit(params, *args, log_callback=None, **kwargs):
+        store["init"] = flat(params)
+
+        def log(iteration, rec):
+            if "first" not in store:
+                store["first"], store["first_iteration"] = flat(params), iteration
+            if log_callback is not None:
+                log_callback(iteration, rec)
+
+        result = real(params, *args, log_callback=log, **kwargs)
+        store["final"] = flat(result.params)
+        return result
+
+    pl.fit_atlas = fit
+    try:
+        yield store
+    finally:
+        pl.fit_atlas = real
+
+
+def _parallel_rank(mesh, cfg, atlas_cfg) -> dict:
+    """One rank of the parallel phase's two-rank pipeline (a spawned
+    process): the launch counters zeroed just before `run_pipeline` and
+    read just after, and the fit's params as it starts and ends."""
+    from deflicker_torch.cli.pipeline import run_pipeline
+
+    with recorded_fit() as fit:
+        reset_counters()
+        out = run_pipeline(cfg, atlas_cfg, mesh=mesh)
+        launches = read_counters()
+    return {"launches": launches, "fit": fit,
+            **{k: out[k] for k in ("psnr", "final_psnr", "final_ewarp",
+                                   "iters_per_sec", "t_flow", "t_pretrain",
+                                   "t_fit", "t_render", "t_stage2",
+                                   "t_total")}}
+
+
+def first_update_spread(params, specs, data, cfg, device) -> dict:
+    """How far Adam's first update moves, over its size (Frobenius), when
+    one sample draw's gradient is summed from two halves (what two ranks
+    do) and when it comes from half the draw only (what a rank without the
+    other's gradients takes): the two scales phase 15(b)'s FIT_RTOL_PAR
+    lies between.  Adam's first step is lr * g / (|g| + eps)."""
+    import torch
+
+    from deflicker_torch.atlas.engine import flat_params, make_loss_fn
+
+    T, (H, W), B = data.num_frames, data.res, cfg.samples_batch
+    gen = torch.Generator(device).manual_seed(2)
+    j, i, f = (torch.randint(0, n, (B,), generator=gen, device=device)
+               for n in (W, H, T))
+    packed = data.packed
+    counts = packed[f, i, j, 13:15].sum(0)
+    loss_fn = make_loss_fn(specs, cfg, data, include_global=True)
+
+    def update(blocks):
+        p = {k: [{kk: vv.detach().clone().requires_grad_()
+                  for kk, vv in layer.items()} for layer in v]
+             for k, v in params.items()}
+        for lo, hi in blocks:
+            loss_fn(p, packed, j[lo:hi], i[lo:hi], f[lo:hi],
+                    (B, counts[0], counts[1]))[0].backward()
+        g = torch.cat([q.grad.reshape(-1) for q in flat_params(p)])
+        return g / (g.abs() + 1e-8)
+
+    whole = update([(0, B)])
+
+    def apart(blocks):
+        return float((update(blocks) - whole).norm() / whole.norm())
+
+    return {"halves_summed": apart([(0, B // 2), (B // 2, B)]),
+            "half_batch": apart([(0, B // 2)])}
+
+
+def first_loss(results: Path) -> float:
+    """The fit's first logged loss (a one-step chunk: the fit's first
+    schedule boundary is at step 1)."""
+    with open(results / "stage_1" / "scalars.jsonl") as f:
+        return json.loads(f.readline())["total"]
+
+
+def phase_parallel(device, frames: Path, raft_flow: Path) -> dict:
+    """deflicker_torch.parallel on the one card: (a) the sharded fit at
+    world size 1 under NCCL against the unsharded fit, bit for bit, and the
+    gradient all-reduce's device time; (b) configuration 1's pipeline on
+    two ranks sharing the card under gloo (RAFT pairs, fit samples, render
+    frames and U-Net frames split), each rank's launches held to its share,
+    its RAFT flow against `raft_flow` (one rank's solve of `frames` with
+    the same weights), its fit against one rank's on the same flow; (c)
+    `cli.batch --dcn` as two processes meeting at a local coordinator, one
+    40-frame clip each."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from deflicker_torch.atlas import (build_specs, fit_atlas, init_models,
+                                       load_video_data, pretrain_mapping)
+    from deflicker_torch.atlas.engine import flat_params
+    from deflicker_torch.cli.pipeline import run_pipeline
+    from deflicker_torch.config import AtlasConfig, PipelineConfig
+    from deflicker_torch.io.media import list_frames
+    from deflicker_torch.parallel import launch, make_mesh
+    from deflicker_torch.parallel.mesh import all_reduce_sum, free_port
+
+    # the kernels at one rank's shapes: rows 1-2 at 5,000 and 2,500 samples
+    # a step (2 and 4 ranks), row 5 at one rank's block of a pair batch
+    rank_rows = {n: phase_chain_kernels(device, samples=n, tag="kernel-rank")
+                 for n in (AtlasConfig().samples_batch // 2,
+                           AtlasConfig().samples_batch // 4)}
+    rank_corr = phase_corr_kernel(device, cases=(
+        ("rank+-3", PAIR_BATCH, CLIP[1] // 8, CLIP[2] // 8, 256, 3.0),
+        ("rank-last+-3", (2 * ((CLIP[0] - 1) % PAIR_BATCH)) // RANKS,
+         CLIP[1] // 8, CLIP[2] // 8, 256, 3.0)), tag="kernel-rank")
+
+    # (a) world size 1 under NCCL: the sharded fit is the unsharded fit
+    cfg = dataclasses.replace(AtlasConfig(), iters_num=ITERS_PAR,
+                              evaluate_every=ITERS_PAR + 1,
+                              stop_global_rigidity=ITERS_PAR // 2)
+    data = load_video_data(frames, CLIP[1] // 4, CLIP[2] // 4,
+                           CLIP[0]).with_packed(device)
+    T, (H, W) = data.num_frames, data.res
+    specs = build_specs(cfg)
+    params = init_models(specs, torch.Generator().manual_seed(0), device)
+    pretrain_mapping(params["mapping1"], specs.mapping1,
+                     torch.Generator(device).manual_seed(1), T, H, W,
+                     cfg.uv_mapping_scale, PRETRAIN_PAR)
+
+    def fit(m, steps, profiled=False):
+        """`steps` fit steps from the pretrained params and seed 2:
+        (params, it/s, launches)."""
+        p = {k: [{kk: vv.detach().clone().requires_grad_()
+                  for kk, vv in layer.items()} for layer in v]
+             for k, v in params.items()}
+        c = dataclasses.replace(cfg, iters_num=steps)
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fit_atlas(p, specs, data, c, torch.Generator(device).manual_seed(2),
+                  mesh=m)
+        torch.cuda.synchronize()
+        return p, steps / (time.time() - t0), read_counters()
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        for m in (None, mesh):       # first calls: cuBLAS, NCCL's communicator
+            fit(m, 5)
+        runs = {name: fit(m, ITERS_PAR)
+                for name, m in (("unsharded", None), ("sharded", mesh))}
+        for name, (_, _, launches) in runs.items():
+            if launches["fwd"] != 2 * ITERS_PAR or launches["bwd"] != 2 * ITERS_PAR:
+                raise AssertionError(f"{name} fit launched {launches}")
+        same = all(torch.equal(a, b) for a, b in zip(
+            flat_params(runs["unsharded"][0]), flat_params(runs["sharded"][0])))
+        if not same:
+            raise AssertionError("world-1 sharded fit differs from the unsharded fit")
+        grads = [torch.randn_like(q) for q in flat_params(runs["sharded"][0])]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        world1 = {
+            "backend": mesh.backend, "params_bit_equal": same,
+            "unsharded_it_s": runs["unsharded"][1], "sharded_it_s": runs["sharded"][1],
+            "grad_floats": int(flat.numel()),
+            "grad_reduce_ms": cuda_ms(lambda: all_reduce_sum(grads, mesh)),
+            "all_reduce_ms": cuda_ms(lambda: dist.all_reduce(flat)),
+            "first_update_rel": first_update_spread(params, specs, data, cfg,
+                                                    device)}
+        # where a step's time goes, unsharded and sharded (20 steps each)
+        for name, m in (("unsharded", None), ("sharded", mesh)):
+            wall_plain = PROFILE_PAR / fit(m, PROFILE_PAR)[1]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall = PROFILE_PAR / fit(m, PROFILE_PAR)[1]
+            report_profile(f"parallel-profile-{name}", "step", PROFILE_PAR,
+                           wall_plain, wall, prof)
+    finally:
+        dist.destroy_process_group()
+    print("[parallel] world 1, NCCL: " + json.dumps(world1), flush=True)
+
+    # (b) two ranks on the one card (gloo: NCCL refuses two ranks a card)
+    par = WORK / "data_par" / frames.name
+    shutil.copytree(frames, par)
+    pipe = dict(root=str(par.parent), ckpt_raft=str(WORK / "raft-random.pth"),
+                ckpt_filter=str(ROOT / "pretrained_weights" / "neural_filter.ckpt"),
+                ckpt_local=str(ROOT / "pretrained_weights" /
+                               "local_refinement_net.ckpt"))
+    pcfg = dataclasses.replace(cfg, pretrain_iter_number=PRETRAIN_PAR,
+                               stop_global_rigidity=0)
+    t0 = time.time()
+    ranks = launch(_parallel_rank, RANKS, "cuda", (PipelineConfig(
+        video_frame_folder=str(par), results_root=str(WORK / "results_par2"),
+        **pipe), pcfg), timeout=PAR_TIMEOUT)
+    wall2 = time.time() - t0
+    # one rank on the same frames and the flow the two ranks wrote
+    one = WORK / "data_par1" / frames.name
+    shutil.copytree(par, one)
+    shutil.copytree(par.parent / f"{par.name}_flow", one.parent / f"{one.name}_flow")
+    with recorded_fit() as ref_fit:
+        reset_counters()
+        ref = run_pipeline(PipelineConfig(
+            video_frame_folder=str(one), results_root=str(WORK / "results_par1"),
+            **{**pipe, "root": str(one.parent)}), pcfg, device=device)
+        ref_launches = read_counters()
+    if (ref_launches["fwd"], ref_launches["bwd"], ref_launches["lookup"]) != (
+            2 * ITERS_PAR, 2 * ITERS_PAR, 0):
+        raise AssertionError(f"one-rank run launched {ref_launches}")
+    batches = -(-(CLIP[0] - 1) // PAIR_BATCH)
+    for r, out in enumerate(ranks):
+        want = {k: 0 for k in out["launches"]}
+        want.update(fwd=2 * ITERS_PAR, bwd=2 * ITERS_PAR, lookup=batches * RAFT_ITERS)
+        if out["launches"] != want:
+            raise AssertionError(f"rank {r} launched {out['launches']}, want {want}")
+    # the fit: the ranks stay bit-equal (one all-reduced gradient, one Adam
+    # update), and near the one-rank fit on the same flow
+    fits = [out["fit"] for out in ranks]
+    if not all(np.array_equal(fits[0][k], f[k]) for f in fits[1:]
+               for k in ("init", "first", "final")):
+        raise AssertionError("the ranks' fit params differ")
+
+    def fit_apart(key):
+        """Two ranks' params from one rank's, over one rank's movement."""
+        return float(np.linalg.norm(fits[0][key] - ref_fit[key])
+                     / np.linalg.norm(ref_fit[key] - ref_fit["init"]))
+
+    fit_first, fit_final = fit_apart("first"), fit_apart("final")
+    if not fit_first <= FIT_RTOL_PAR:
+        raise AssertionError(f"two-rank fit params after step "
+                             f"{ref_fit['first_iteration']} {fit_first} of its "
+                             f"update from one rank's, bound {FIT_RTOL_PAR}")
+    # the RAFT pairs: split, solved and gathered against one rank's solve
+    names2 = sorted(f.name for f in (par.parent / f"{par.name}_flow").glob("*.npy"))
+    names1 = sorted(f.name for f in raft_flow.glob("*.npy"))
+    if names2 != names1 or len(names1) != 2 * (CLIP[0] - 1):
+        raise AssertionError(f"flow files: {len(names2)} on two ranks, "
+                             f"{len(names1)} on one")
+
+    def flow_rel(a_name, b_name):
+        a = np.load(par.parent / f"{par.name}_flow" / a_name)
+        b = np.load(raft_flow / b_name)
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    flow_err = max(flow_rel(n, n) for n in names1)
+    flow_other = min(flow_rel(a, b) for a, b in zip(names1, names1[1:]))
+    if not flow_err <= FLOW_RTOL_PAR:
+        raise AssertionError(f"two-rank RAFT flow {flow_err} from one rank's "
+                             f"solve, bound {FLOW_RTOL_PAR}")
+    loss2 = first_loss(WORK / "results_par2" / frames.name)
+    loss1 = first_loss(WORK / "results_par1" / frames.name)
+    if not abs(loss2 - loss1) <= 1e-5 * abs(loss1):
+        raise AssertionError(f"first-step loss {loss2} on two ranks, {loss1} on one")
+    for key in ("psnr", "final_psnr"):
+        if not abs(ranks[0][key] - ref[key]) <= 0.1:
+            raise AssertionError(f"{key} {ranks[0][key]} on two ranks, {ref[key]} on one")
+    for sub in ("stage_1/output", "final/output"):
+        n = len(list_frames(WORK / "results_par2" / frames.name / sub))
+        if n != CLIP[0]:
+            raise AssertionError(f"two ranks wrote {n} frames to {sub}")
+    two = {"ranks": RANKS, "backend": "gloo", "wall_s": wall2,
+           "ranks_fit_bit_equal": True,
+           "fit_first_iteration": ref_fit["first_iteration"],
+           "fit_rel_err_first": fit_first, "fit_rel_err_final": fit_final,
+           "fit_init_max_abs": float(np.abs(fits[0]["init"]
+                                            - ref_fit["init"]).max()),
+           "flow_rel_err_max": flow_err,
+           "flow_rel_err_other_pair_min": flow_other,
+           "first_loss": [loss2, loss1], "psnr": [ranks[0]["psnr"], ref["psnr"]],
+           "final_psnr": [ranks[0]["final_psnr"], ref["final_psnr"]],
+           "it_s_per_rank": [o["iters_per_sec"] for o in ranks],
+           "it_s_one_rank": ref["iters_per_sec"],
+           "t_flow": [o["t_flow"] for o in ranks], "t_stage2": [o["t_stage2"] for o in ranks],
+           "t_total": [o["t_total"] for o in ranks] + [ref["t_total"]],
+           "launches_per_rank": [o["launches"] for o in ranks],
+           "launches_one_rank": ref_launches}
+    print("[parallel] two ranks, one card: " + json.dumps(two), flush=True)
+
+    # (c) cli.batch --dcn: two processes (hosts) on the one card, one clip each
+    config = WORK / "dcn_config.json"
+    config.write_text(json.dumps(dataclasses.asdict(dataclasses.replace(
+        AtlasConfig(), pretrain_iter_number=PRETRAIN_PAR,
+        stop_global_rigidity=ITERS_DCN // 2))))
+    clips = ("clipa", "clipb")           # the serve phase's, flow on disk
+    port = free_port()
+    procs, t0 = [], time.time()
+    for pid in range(2):
+        argv = [sys.executable, "-m", "deflicker_torch.cli.batch", "--dcn",
+                "--coordinator", f"127.0.0.1:{port}", "--num_processes", "2",
+                "--process_id", str(pid), "--gpu", "0",
+                "--videos", *[str(WORK / "data_serve" / f"{c}.mp4") for c in clips],
+                "--root", str(WORK / "data_serve"), "--iters", str(ITERS_DCN),
+                "--config", str(config),
+                "--results_root", str(WORK / f"results_dcn{pid}"),
+                "--ckpt_raft", str(WORK / "raft-random.pth"),
+                "--ckpt_filter", pipe["ckpt_filter"], "--ckpt_local", pipe["ckpt_local"]]
+        procs.append(subprocess.Popen(argv, cwd=ROOT, text=True,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    outs, walls = [], []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=PAR_TIMEOUT)[0])
+            walls.append(time.time() - t0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"dcn process {pid} exited {p.returncode}:\n{out[-3000:]}")
+        recs = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+        hello = next(r for r in recs if "videos_assigned" in r)
+        if hello != {"process": pid, "processes": 2, "videos_assigned": 1}:
+            raise AssertionError(f"dcn process {pid} hello {hello}")
+        res = WORK / f"results_dcn{pid}"
+        mine, other = clips[pid], clips[1 - pid]
+        n = len(list_frames(res / mine / "final" / "output"))
+        if n != SERVE_FRAMES or (res / other).exists():
+            raise AssertionError(f"dcn process {pid}: {n} frames of {mine}, "
+                                 f"{other} present: {(res / other).exists()}")
+    dcn = {"processes": 2, "walls_s": walls,
+           "videos": [[r for r in (json.loads(x) for x in out.splitlines()
+                                   if x.startswith("{")) if "video" in r]
+                      for out in outs]}
+    print("[parallel] dcn: " + json.dumps(dcn), flush=True)
+    return {"world1": world1, "two_ranks": two, "dcn": dcn,
+            "rank_chain": rank_rows, "rank_corr": rank_corr}
+
+
 def device_events(prof):
     """Device-side events of a torch.profiler run (kernels, copies), summed
     by name: [(microseconds, count, name)], longest first.  User
@@ -1882,6 +2268,9 @@ def main() -> int:
     t1 = time.time()
     phase_train(device)
     print(f"[train] wall {time.time() - t1:.1f} s", flush=True)
+    t1 = time.time()
+    phase_parallel(device, frames, WORK / "data_raft" / f"{frames.name}_flow")
+    print(f"[parallel] wall {time.time() - t1:.1f} s", flush=True)
 
     src = "deflicker_torch/csrc/imlp_chain.cu"
     replaces = {"fwd": "deflicker_tpu/ops/pallas/imlp_kernel.py:421",

@@ -11,8 +11,13 @@ What stays warm across jobs: the RAFT and stage-2 weights, on the device
 once (`flow_provider`, `filter_engine`, each made at its first use); the two
 CUDA libraries, built and loaded once a process (`ops/cuda/build.load`);
 and the frames and flow of a clip already under `<root>/<stem>/`, which are
-neither decoded nor solved again.  The JAX package's `mesh` argument has
-no counterpart until multi-GPU is ported: `device` names the one card.
+neither decoded nor solved again.
+
+`mesh="auto"` (the default) picks up an initialised `torch.distributed`
+world of several ranks (`torchrun`, parallel/mesh.py): every rank then
+builds its `Deflickerer` and calls `process` with the same arguments, the
+work splits over the ranks' cards, and rank 0 writes.  Otherwise, or with
+`mesh=None`, `device` names the one card.
 """
 
 from __future__ import annotations
@@ -40,7 +45,18 @@ class Deflickerer:
                  results_root: str = "results",
                  stage2_dtype: str = "bfloat16",
                  stage2_unpad: str = "crop",
-                 device=None):
+                 device=None, mesh: object = "auto"):
+        if mesh == "auto":
+            import torch.distributed as dist
+
+            mesh = None
+            if dist.is_initialized() and dist.get_world_size() > 1:
+                from .parallel import make_mesh
+
+                mesh = make_mesh()
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device
         self.device = resolve_device("cuda:0" if device is None else device)
         self.ckpt_raft = ckpt_raft
         self.ckpt_filter = ckpt_filter
@@ -62,7 +78,7 @@ class Deflickerer:
             from .cli.pipeline import make_flow_provider
 
             self._flow_provider = make_flow_provider(
-                self._pipe_cfg(video_name="_"), self.device)
+                self._pipe_cfg(video_name="_"), self.device, self.mesh)
         return self._flow_provider
 
     @property
@@ -75,7 +91,7 @@ class Deflickerer:
             self._filter_engine = load_filter_engine(
                 self.ckpt_filter, self.ckpt_local, device=self.device,
                 dtype=getattr(torch, self.stage2_dtype),
-                unpad=self.stage2_unpad)
+                unpad=self.stage2_unpad, mesh=self.mesh)
         return self._filter_engine
 
     def _pipe_cfg(self, **overrides) -> PipelineConfig:
@@ -113,4 +129,4 @@ class Deflickerer:
             atlas_cfg = dataclasses.replace(atlas_cfg, **overrides)
         return run_pipeline(cfg, atlas_cfg, device=self.device,
                             flow_provider=self.flow_provider,
-                            filter_engine=self.filter_engine)
+                            filter_engine=self.filter_engine, mesh=self.mesh)

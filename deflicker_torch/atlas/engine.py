@@ -20,6 +20,15 @@ The JAX package's engine (deflicker_tpu/atlas/engine.py) in PyTorch:
 The dual fit queries four networks a step (mapping1, mapping2, atlas,
 alpha); `DEFLICKER_IMLP_STASH=1` sends each through the stash pair of chain
 kernels instead of the remat pair (bit-identical gradients).
+
+With a mesh (parallel/mesh.py) the single fit shards its sample batch, as
+the JAX package's `shard_constraint` on the sampled (j, i, f) does: every
+rank draws the full batch from the same seeded generator and keeps its
+block, so the sharded fit sees exactly the unsharded fit's samples; each
+loss term is the local sum over the global count (the masked means over
+the global mask counts, which every rank reads from the full batch), the
+gradients go through one all-reduce a step, and Adam, the same on every
+rank, keeps the ranks' params equal.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ from ..losses import (alpha_bootstrap_loss, alpha_flow_loss, flow_loss,
                       sparsity_loss)
 from ..models.imlp import IMLPSpec, imlp_apply, imlp_apply_fused, imlp_init
 from ..ops.coords import normalize_xyt
+from ..parallel.mesh import (Mesh, all_reduce_sum, block, is_main, replicated,
+                             shard_constraint)
 from .data import VideoData
 
 Params = Dict[str, list]
@@ -134,9 +145,9 @@ def make_loss_fn(specs: AtlasSpecs, cfg: AtlasConfig, data: VideoData,
                  include_global: bool, include_bootstrap: bool = False
                  ) -> Callable:
     """The per-batch loss over sampled integer pixel coords (j, i, f):
-    loss_fn(params, packed, j, i, f) -> (total, aux).  `packed` is the
-    (T, H, W, 16) gather pack (VideoData.with_packed); `data` supplies only
-    the shapes.  One iteration of the reference loop (single:
+    loss_fn(params, packed, j, i, f, norm=None) -> (total, aux).  `packed`
+    is the (T, H, W, 16) gather pack (VideoData.with_packed); `data`
+    supplies only the shapes.  One iteration of the reference loop (single:
     src/stage1_neural_atlas.py:159-231; dual:
     src/stage1_neural_atlas_seg.py:204-315) with all queries of a network
     fused into one forward per network.
@@ -145,7 +156,11 @@ def make_loss_fn(specs: AtlasSpecs, cfg: AtlasConfig, data: VideoData,
     counterpart of `jax.vmap` over the JAX package's loss): params with a
     leading video axis on every leaf, `packed` (V, T, H, W, 16) and samples
     (V, B) give `total` and every `aux` term of shape (V,), video v's terms
-    reading only video v's params, pack and samples."""
+    reading only video v's params, pack and samples.
+
+    `norm` = (n, mask_fwd count, mask_bwd count) of the whole batch turns
+    every term into this block's share of the whole batch's loss (a
+    sharded fit's rank); None takes the means over the samples given."""
     T = data.num_frames
     L = data.larger_dim
     dual = specs.dual
@@ -190,7 +205,8 @@ def make_loss_fn(specs: AtlasSpecs, cfg: AtlasConfig, data: VideoData,
                          spec).reshape(*lead, K, B, out_dim).unbind(-3)
 
     def loss_fn(params: Params, packed: torch.Tensor, j: torch.Tensor,
-                i: torch.Tensor, f: torch.Tensor):
+                i: torch.Tensor, f: torch.Tensor, norm=None):
+        n, *denoms = norm if norm is not None else (None, None, None)
         if j.dim() == 2:           # (V, B): gather from each video's pack
             video = torch.arange(j.shape[0], device=j.device)[:, None]
             g = packed[video, f, i, j]
@@ -234,56 +250,58 @@ def make_loss_fn(specs: AtlasSpecs, cfg: AtlasConfig, data: VideoData,
             a = 1.0
             rgb_pred, rgb_pred_x, rgb_pred_y = rgb1, rgb1_x, rgb1_y
 
-        l_rgb = rgb_loss(rgb_pred, rgb_gt)
+        l_rgb = rgb_loss(rgb_pred, rgb_gt, n)
         aux["rgb"] = l_rgb
         total = cfg.rgb_coeff * l_rgb
 
         if cfg.use_gradient_loss:
             l_grad = gradient_loss(rgb_pred, rgb_pred_x, rgb_pred_y,
-                                   dx_gt, dy_gt)
+                                   dx_gt, dy_gt, n)
             aux["gradient"] = l_grad
             total = total + cfg.gradient_loss_coeff * l_grad
 
-        l_rig1 = rigidity_loss(u1[0], u1[3], u1[4], d, L, cfg.uv_mapping_scale)
+        l_rig1 = rigidity_loss(u1[0], u1[3], u1[4], d, L, cfg.uv_mapping_scale,
+                               n=n)
         aux["rigidity1"] = l_rig1
         total = total + cfg.rigidity_coeff * l_rig1
         if include_global:
             l_grig1 = rigidity_loss(u1[0], u1[7], u1[8], gd_fg, L,
-                                    cfg.uv_mapping_scale)
+                                    cfg.uv_mapping_scale, n=n)
             aux["global_rigidity1"] = l_grig1
             total = total + cfg.global_rigidity_coeff_fg * l_grig1
 
         l_flow1 = flow_loss(u1[0], u1[5], u1[6], mfwd, mbwd, L,
-                            cfg.uv_mapping_scale, alpha=a)
+                            cfg.uv_mapping_scale, alpha=a, denoms=denoms)
         aux["flow1"] = l_flow1
         total = total + cfg.optical_flow_coeff * l_flow1
 
         if dual:
             l_rig2 = rigidity_loss(u2[0], u2[3], u2[4], d, L,
-                                   cfg.uv_mapping_scale)
+                                   cfg.uv_mapping_scale, n=n)
             aux["rigidity2"] = l_rig2
             total = total + cfg.rigidity_coeff * l_rig2
             if include_global:
                 l_grig2 = rigidity_loss(u2[0], u2[7], u2[8], gd_bg, L,
-                                        cfg.uv_mapping_scale)
+                                        cfg.uv_mapping_scale, n=n)
                 aux["global_rigidity2"] = l_grig2
                 total = total + cfg.global_rigidity_coeff_bg * l_grig2
 
             l_flow2 = flow_loss(u2[0], u2[5], u2[6], mfwd, mbwd, L,
-                                cfg.uv_mapping_scale, alpha=1.0 - a)
+                                cfg.uv_mapping_scale, alpha=1.0 - a,
+                                denoms=denoms)
             aux["flow2"] = l_flow2
             total = total + cfg.optical_flow_coeff * l_flow2
 
-            l_sparse = sparsity_loss(rgb1, a)
+            l_sparse = sparsity_loss(rgb1, a, n)
             aux["sparsity"] = l_sparse
             total = total + cfg.sparsity_coeff * l_sparse
 
-            l_aflow = alpha_flow_loss(a, a_fwd, a_bwd, mfwd, mbwd)
+            l_aflow = alpha_flow_loss(a, a_fwd, a_bwd, mfwd, mbwd, denoms)
             aux["alpha_flow"] = l_aflow
             total = total + cfg.alpha_flow_factor * l_aflow
 
             if include_bootstrap:
-                l_boot = alpha_bootstrap_loss(a, mask)
+                l_boot = alpha_bootstrap_loss(a, mask, n)
                 aux["alpha_bootstrap"] = l_boot
                 total = total + cfg.alpha_bootstrapping_factor * l_boot
 
@@ -342,7 +360,8 @@ def run_fit_schedule(params: Params, specs: AtlasSpecs, data: VideoData,
                      on_log: Callable[[int, List[Dict[str, float]]], None],
                      on_eval: Callable[[int, torch.optim.Adam], None],
                      rescue_state: Callable[[torch.optim.Adam], dict],
-                     rescue_path: str) -> Tuple[torch.optim.Adam, int]:
+                     rescue_path: str, mesh: Optional[Mesh] = None
+                     ) -> Tuple[torch.optim.Adam, int]:
     """The fit loop of the single fit (`n_videos` None: params and samples
     carry no video axis) and of the multi-video fit (samples (V, B), one
     loss per video, their sum into one backward), from `start_iteration` to
@@ -357,13 +376,29 @@ def run_fit_schedule(params: Params, specs: AtlasSpecs, data: VideoData,
     fires when `i % evaluate_every == 0 and i > start_iteration`
     (src/stage1_neural_atlas.py:246-251).  A non-finite loss dumps
     `rescue_state(optimizer)` to `rescue_path` and raises.  Params are
-    updated in place; returns the optimizer and the iteration reached."""
+    updated in place; returns the optimizer and the iteration reached.
+
+    With `mesh`, every rank draws the samples of the whole fit and keeps
+    its block of them.  The single fit shards its sample batch: rank 0's
+    params are broadcast once, each step's gradients are summed over the
+    ranks by one all-reduce of all of them, and each chunk's loss sums by
+    one more, so every rank logs, evaluates and raises alike (only rank 0
+    writes the rescue file).  The multi-video fit shards the video axis:
+    `n_videos` counts the videos of all ranks, `params` and `packed` hold
+    this rank's block of them, and no collective runs in a step (each
+    chunk's records are gathered at its host sync, so every rank logs and
+    raises for every video).  `rescue_state` runs on every rank."""
     device = packed.device
     T, (H, W) = data.num_frames, data.res
+    flat = flat_params(params)
+    sample_sharded = mesh is not None and n_videos is None
+    if sample_sharded:
+        replicated(flat, mesh)
     optimizer = make_optimizer(params, cfg.learning_rate)
     adam_state_from_host(optimizer, params, opt_state)
     shape = ((cfg.samples_batch,) if n_videos is None
              else (n_videos, cfg.samples_batch))
+    lo, hi = block(shape[0], mesh)    # this rank's samples, or videos
     boundaries = sorted({cfg.stop_global_rigidity + 1,
                          cfg.stop_bootstrapping_iteration + 1})
     eval_every = max(1, cfg.evaluate_every)
@@ -391,16 +426,32 @@ def run_fit_schedule(params: Params, specs: AtlasSpecs, data: VideoData,
             j = torch.randint(0, W, shape, generator=generator, device=device)
             ii = torch.randint(0, H, shape, generator=generator, device=device)
             f = torch.randint(0, T, shape, generator=generator, device=device)
-            total, aux = loss_fn(params, packed, j, ii, f)
+            norm = None
+            if sample_sharded:
+                # the whole batch's size and flow-mask counts (data, so no
+                # collective): this block's terms are shares of its loss
+                counts = packed[f, ii, j, 13:15].sum(0)
+                norm = (shape[0], counts[0], counts[1])
+            total, aux = loss_fn(params, packed, j[lo:hi], ii[lo:hi],
+                                 f[lo:hi], norm)
             optimizer.zero_grad(set_to_none=True)
             total.sum().backward()
+            if sample_sharded:
+                all_reduce_sum([p.grad for p in flat], mesh)
             optimizer.step()
             aux = {k: v.detach() for k, v in aux.items()}
             sums = aux if sums is None else {k: sums[k] + aux[k] for k in sums}
         i = nxt
         # the one host sync of the chunk: per-chunk mean of each loss term
         keys = sorted(sums)
-        vals = (torch.stack([sums[k] for k in keys]) / n_steps).cpu().numpy()
+        vals = torch.stack([sums[k] for k in keys])
+        if sample_sharded:
+            all_reduce_sum(vals, mesh)
+        elif mesh is not None:
+            # every rank gets every video's record (and raises alike)
+            vals = shard_constraint(vals.reshape(len(keys), -1), mesh, 1,
+                                    n_videos)
+        vals = (vals / n_steps).cpu().numpy()
         vals = vals.reshape(len(keys), -1)
         recs = [{k: float(vals[n, v]) for n, k in enumerate(keys)}
                 for v in range(vals.shape[1])]
@@ -410,8 +461,10 @@ def run_fit_schedule(params: Params, specs: AtlasSpecs, data: VideoData,
             # silently produce garbage)
             from ..utils.checkpoint import save_checkpoint
 
-            rescue = save_checkpoint(rescue_path, {**rescue_state(optimizer),
-                                                   "iteration": i})
+            state, rescue = rescue_state(optimizer), rescue_path
+            if is_main(mesh):
+                rescue = save_checkpoint(rescue_path,
+                                         {**state, "iteration": i})
             what = recs[0] if n_videos is None else f"video(s) {bad}"
             raise FloatingPointError(
                 f"non-finite loss at iteration {i - 1}: {what} "
@@ -427,14 +480,17 @@ def fit_atlas(params: Params, specs: AtlasSpecs, data: VideoData,
               start_iteration: int = 0, opt_state: Optional[dict] = None,
               eval_callback: Optional[Callable[[int, Params, dict], None]] = None,
               log_callback: Optional[Callable[[int, Dict[str, float]], None]] = None,
-              rescue_path: str = "deflicker_rescue_checkpoint") -> FitResult:
+              rescue_path: str = "deflicker_rescue_checkpoint",
+              mesh: Optional[Mesh] = None) -> FitResult:
     """Run the fit from `start_iteration` to `cfg.iters_num - 1` on the
     device of `params` (and of `generator`, which draws the samples).
 
     Evaluation cadence replicates the reference: `eval_callback(i, ...)`
     fires when `i % evaluate_every == 0 and i > start_iteration`
     (src/stage1_neural_atlas.py:246-251) — with the default config exactly
-    once, at iteration 10000.  Params are updated in place.
+    once, at iteration 10000.  Params are updated in place.  With `mesh`
+    the sample batch is sharded over its ranks (`run_fit_schedule`), every
+    rank calls `fit_atlas` alike and ends with the same params.
     """
     device = params["mapping1"][0]["w"].device
     # one-gather sampling: the pack is the only fit tensor on the device
@@ -456,7 +512,7 @@ def fit_atlas(params: Params, specs: AtlasSpecs, data: VideoData,
         opt_state, on_log, on_eval,
         lambda opt: {"params": params,
                      "opt_state": adam_state_to_host(opt, params)},
-        rescue_path)
+        rescue_path, mesh)
     return FitResult(params, adam_state_to_host(optimizer, params), i, logs)
 
 

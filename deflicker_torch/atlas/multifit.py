@@ -20,8 +20,15 @@ The fit loop (chunk boundaries, the stop of global rigidity and of
 bootstrapping, the eval cadence, the non-finite rescue) is `fit_atlas`'s:
 both run `engine.run_fit_schedule`.  `fit_group` and `save_group` are the
 group fit and render that the chunked pipeline and the batch CLI share.
-The TPU tile caps and the mesh sharding of the JAX module have no
-counterpart: the V axis lives on one card.
+
+With a mesh the V axis splits over the ranks, as the JAX module shards it:
+every rank draws what the whole group's fit draws (inits, pretrain and fit
+samples) and keeps its block of videos, so each video fits exactly as in
+the unsplit group, and no collective runs in a step.  The fitted params
+and Adam moments are gathered at the eval points and the end, so every
+rank holds every video's result.  A group whose V does not divide by the
+ranks fits unsplit on every rank (the JAX rule).  The TPU tile caps of the
+JAX module have no counterpart.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from ..config import AtlasConfig
 from ..losses import safe_norm
 from ..models.imlp import imlp_apply, imlp_init
 from ..ops.coords import normalize_xyt
+from ..parallel.mesh import Mesh, block, is_main, shard_constraint
 from ..utils.convert import atlas_params_from_jax
 from ..utils.device import synchronize
 from .data import VideoData
@@ -90,18 +98,24 @@ def pretrain_samples(generator: torch.Generator, n_videos: int, batch: int,
 def pretrain_mapping_multi(params_v: list, spec, generator: torch.Generator,
                            num_frames: int, H: int, W: int,
                            uv_mapping_scale: float, pretrain_iters: int = 100,
-                           batch: int = 10000, lr: float = 1e-4) -> list:
+                           batch: int = 10000, lr: float = 1e-4,
+                           mesh: Optional[Mesh] = None) -> list:
     """`engine.pretrain_mapping` for V stacked mappings at once (plain fp32,
     the same schedule and loss per video): each step draws (V, batch)
     samples, the per-video losses sum into one backward, one Adam updates
-    the stacks.  Params are updated in place and returned."""
+    the stacks.  With `mesh` the stacks hold this rank's block of the
+    group's videos: each step draws the whole group's samples and keeps
+    the block's.  Params are updated in place and returned."""
     device = params_v[0]["w"].device
     V = params_v[0]["w"].shape[0]
+    n_all = V * (mesh.size if mesh is not None else 1)
+    lo, hi = block(n_all, mesh)
     L = max(H, W)
     opt = _adam([layer[k] for layer in params_v for k in ("w", "b")], lr)
     for _ in range(pretrain_iters):
         for f in range(num_frames):
-            i, j = pretrain_samples(generator, V, batch, H, W, device)
+            i, j = pretrain_samples(generator, n_all, batch, H, W, device)
+            i, j = i[lo:hi], j[lo:hi]
             xyt = normalize_xyt(j, i, torch.full((V, batch), f, device=device),
                                 L, num_frames)
             uv = imlp_apply(params_v, xyt, spec)
@@ -151,8 +165,8 @@ def fit_atlas_multi(params_v: Params, specs: AtlasSpecs, data_v: VideoData,
                     eval_callback: Optional[Callable] = None,
                     log_callback: Optional[Callable] = None,
                     checkpoint_callback: Optional[Callable] = None,
-                    rescue_path: str = "deflicker_rescue_checkpoint_multi"
-                    ) -> List[FitResult]:
+                    rescue_path: str = "deflicker_rescue_checkpoint_multi",
+                    mesh: Optional[Mesh] = None) -> List[FitResult]:
     """Fit V videos at once from `start_iteration` to `cfg.iters_num - 1`
     (`fit_atlas`'s loop, `engine.run_fit_schedule`, with a video axis);
     returns one FitResult per video.
@@ -166,14 +180,31 @@ def fit_atlas_multi(params_v: Params, specs: AtlasSpecs, data_v: VideoData,
     point and once at the end.  Resume: pass `start_iteration` (the steps
     done), the saved `opt_state_v`, and a generator set to the saved state;
     the continuation then replays the uninterrupted fit exactly.  Params
-    are updated in place."""
+    are updated in place.
+
+    With `mesh`, `params_v`, `data_v` and `opt_state_v` hold this rank's
+    block of a group of V = blocks x ranks videos (an even split); the
+    callbacks, the checkpoint state and the results cover all V on every
+    rank (gathered at the eval points and the end)."""
     device = params_v["mapping1"][0]["w"].device
-    V = data_v.video.shape[0]
+    V = data_v.video.shape[0] * (mesh.size if mesh is not None else 1)
     logs: List[List[Dict[str, float]]] = [[] for _ in range(V)]
 
+    def gather(x: torch.Tensor) -> torch.Tensor:
+        return shard_constraint(x.detach(), mesh, 0, V)
+
     def state(optimizer):
-        return {"params_v": params_v,
-                "opt_state_v": adam_state_to_host(optimizer, params_v),
+        """Params, host Adam state (all V videos) and generator state."""
+        params, opt = params_v, adam_state_to_host(optimizer, params_v)
+        if mesh is not None:
+            params = {name: [{k: gather(t) for k, t in layer.items()}
+                             for layer in layers]
+                      for name, layers in params_v.items()}
+            if opt["exp_avg"] is not None:
+                for key in ("exp_avg", "exp_avg_sq"):
+                    opt[key] = [gather(torch.from_numpy(m).to(device)).cpu()
+                                .numpy() for m in opt[key]]
+        return {"params_v": params, "opt_state_v": opt,
                 "generator_state": generator.get_state()}
 
     def on_log(iteration, recs):
@@ -183,30 +214,34 @@ def fit_atlas_multi(params_v: Params, specs: AtlasSpecs, data_v: VideoData,
                 log_callback(iteration, v, rec)
 
     def on_eval(iteration, optimizer):
+        if eval_callback is None and checkpoint_callback is None:
+            return
+        st = state(optimizer)
         if eval_callback is not None:
-            opts = opt_state_per_video(
-                adam_state_to_host(optimizer, params_v), V)
-            for v, p in enumerate(unstack_tree(params_v, V)):
+            opts = opt_state_per_video(st["opt_state_v"], V)
+            for v, p in enumerate(unstack_tree(st["params_v"], V)):
                 eval_callback(iteration, v, p, opts[v])
         if checkpoint_callback is not None:
-            checkpoint_callback(iteration + 1, state(optimizer))
+            checkpoint_callback(iteration + 1, st)
 
     optimizer, i = run_fit_schedule(
         params_v, specs, first_video(data_v), data_v.packed.to(device), cfg,
         generator, V, start_iteration, opt_state_v, on_log, on_eval, state,
-        rescue_path)
+        rescue_path, mesh)
+    st = state(optimizer)
     if checkpoint_callback is not None:
-        checkpoint_callback(i, state(optimizer))
-    opts = opt_state_per_video(adam_state_to_host(optimizer, params_v), V)
+        checkpoint_callback(i, st)
+    opts = opt_state_per_video(st["opt_state_v"], V)
     return [FitResult(p, opts[v], i, logs[v])
-            for v, p in enumerate(unstack_tree(params_v, V))]
+            for v, p in enumerate(unstack_tree(st["params_v"], V))]
 
 
 def fit_group(datas: Sequence[VideoData], specs: AtlasSpecs,
               cfg: AtlasConfig, generators: tuple, device,
               resume: Optional[dict] = None,
               log_callback: Optional[Callable] = None,
-              checkpoint_callback: Optional[Callable] = None) -> dict:
+              checkpoint_callback: Optional[Callable] = None,
+              mesh: Optional[Mesh] = None) -> dict:
     """One V-batched fit of same-shaped videos, as the chunked pipeline and
     the batch CLI run it: stack the videos, init the V networks of each
     kind and pretrain the mappings (or take params, Adam moments and the fit
@@ -214,53 +249,82 @@ def fit_group(datas: Sequence[VideoData], specs: AtlasSpecs,
     package's has no generator state, so the generator keeps its seed),
     then `fit_atlas_multi`.  `generators` is the pipeline's (init, pretrain
     mapping1, fit, pretrain mapping2).  Returns {"results": one FitResult
-    per video, "start_iteration", "t_pretrain", "t_fit"}."""
+    per video, "start_iteration", "t_pretrain", "t_fit"}.
+
+    With `mesh` the videos split over its ranks when their count divides
+    by the ranks (else every rank fits them all); every rank returns every
+    video's result and calls the callbacks alike."""
     g_init, g_pre, g_fit, g_pre2 = generators
-    data_v = stack_video_data(datas, device)
+    V = len(datas)
+    if mesh is not None and (mesh.size <= 1 or V % mesh.size):
+        mesh = None
+    lo, hi = block(V, mesh)
+    data_v = stack_video_data(datas[lo:hi], device)
     T, (H, W) = datas[0].num_frames, datas[0].res
     t1 = time.time()
     if resume is not None:
-        params_v = atlas_params_from_jax(resume["params_v"], device)
-        opt_state_v = resume["opt_state_v"]
+        params_v = atlas_params_from_jax(_rows(resume["params_v"], lo, hi),
+                                         device)
+        opt_state_v = _rows(resume["opt_state_v"], lo, hi)
         if resume.get("generator_state") is not None:
             g_fit.set_state(torch.as_tensor(resume["generator_state"]))
         start_iteration = int(resume["iteration"])
     else:
         start_iteration, opt_state_v = 0, None
-        params_v = init_models_multi(specs, g_init, len(datas), device)
+        params_v = _rows(init_models_multi(specs, g_init, V, device), lo, hi)
         for name, g, on in (("mapping1", g_pre, cfg.pretrain_mapping1),
                             ("mapping2", g_pre2,
                              specs.dual and cfg.pretrain_mapping2)):
             if on:
                 pretrain_mapping_multi(params_v[name], getattr(specs, name), g,
                                        T, H, W, cfg.uv_mapping_scale,
-                                       cfg.pretrain_iter_number)
+                                       cfg.pretrain_iter_number, mesh=mesh)
     synchronize(device)
     t2 = time.time()
     results = fit_atlas_multi(params_v, specs, data_v, cfg, g_fit,
                               start_iteration=start_iteration,
                               opt_state_v=opt_state_v,
                               log_callback=log_callback,
-                              checkpoint_callback=checkpoint_callback)
+                              checkpoint_callback=checkpoint_callback,
+                              mesh=mesh)
     synchronize(device)
     return {"results": results, "start_iteration": start_iteration,
             "t_pretrain": t2 - t1, "t_fit": time.time() - t2}
 
 
+def _rows(tree, lo: int, hi: int):
+    """Videos [lo, hi) of a tree whose tensor and array leaves carry a
+    leading video axis (tensors come back as fresh leaves that keep
+    `requires_grad`); other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: _rows(x, lo, hi) for k, x in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rows(x, lo, hi) for x in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach()[lo:hi].clone().requires_grad_(tree.requires_grad)
+    if isinstance(tree, np.ndarray) and tree.ndim:
+        return tree[lo:hi]
+    return tree
+
+
 def save_group(results: Sequence[FitResult], specs: AtlasSpecs,
                datas: Sequence[VideoData], cfg: AtlasConfig,
-               outputs: Sequence[dict]) -> List[float]:
+               outputs: Sequence[dict], mesh: Optional[Mesh] = None
+               ) -> List[float]:
     """The final render of every video of a group fit: `outputs[v]` holds
     the video's `folder`, its `texture` folder (exported on the dual path)
-    and any further `evaluate_and_save` keywords.  Returns the PSNRs."""
+    and any further `evaluate_and_save` keywords.  Returns the PSNRs.
+    With `mesh` every rank calls it with every video's result: the frames
+    of each render split over the ranks, rank 0 writes."""
     psnrs = []
     for res, data, out in zip(results, datas, outputs):
         out = dict(out)
         folder, texture = out.pop("folder"), out.pop("texture")
         _, psnr = evaluate_and_save(res.params, specs, data, cfg, folder,
-                                    res.iteration - 1, res.opt_state, **out)
+                                    res.iteration - 1, res.opt_state,
+                                    mesh=mesh, **out)
         psnrs.append(psnr)
-        if specs.dual:
+        if specs.dual and is_main(mesh):
             # each video (or chunk) owns its atlas: one texture set each
             export_atlas_artifacts(res.params, specs, data, texture)
     return psnrs

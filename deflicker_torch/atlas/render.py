@@ -24,6 +24,7 @@ from ..config import AtlasConfig
 from ..metrics import psnr
 from ..models.imlp import imlp_apply
 from ..ops.coords import normalize_xyt
+from ..parallel.mesh import Mesh, block, is_main, shard_constraint
 from ..utils.checkpoint import save_checkpoint
 from .data import VideoData
 from .engine import AtlasSpecs, Params, squash_alpha
@@ -78,21 +79,28 @@ def render_frame(params: Params, specs: AtlasSpecs, f: int, H: int, W: int,
 
 @torch.no_grad()
 def render_frames(params: Params, specs: AtlasSpecs, T: int, H: int, W: int,
-                  rows_per_call: int = 1 << 19) -> np.ndarray:
+                  rows_per_call: int = 1 << 19,
+                  mesh: Optional[Mesh] = None) -> np.ndarray:
     """All frames -> (T, H, W, 3) float32 on the host, rendered on the
-    params' device a few whole frames (<= rows_per_call pixels) at a time."""
+    params' device a few whole frames (<= rows_per_call pixels) at a time.
+    With `mesh` each rank renders its block of the frames and every rank
+    gets them all (the JAX package splits each frame's pixels instead:
+    either split gives the same frames)."""
     device = param_device(params)
     jj, ii = _pixel_grid(H, W, device)
     n_fr = max(1, rows_per_call // (H * W))
-    out = np.zeros((T, H, W, 3), np.float32)
-    for f0 in range(0, T, n_fr):
-        fs = torch.arange(f0, min(T, f0 + n_fr), device=device)
+    lo, hi = block(T, mesh)
+    out = np.zeros((hi - lo, H, W, 3), np.float32)
+    for f0 in range(lo, hi, n_fr):
+        fs = torch.arange(f0, min(hi, f0 + n_fr), device=device)
         k = fs.numel()
         xyt = normalize_xyt(jj.repeat(k), ii.repeat(k),
                             fs.repeat_interleave(H * W), max(H, W), T)
         rgb = _render_xyt(params, specs, xyt)["rgb"]
-        out[f0:f0 + k] = rgb.reshape(k, H, W, 3).cpu().numpy()
-    return out
+        out[f0 - lo:f0 - lo + k] = rgb.reshape(k, H, W, 3).cpu().numpy()
+    if mesh is None or mesh.size <= 1:
+        return out
+    return shard_constraint(torch.from_numpy(out), mesh, 0, T).numpy()
 
 
 @torch.no_grad()
@@ -274,7 +282,8 @@ def evaluate_and_save(params: Params, specs: AtlasSpecs, data: VideoData,
                       iteration: int, opt_state: Optional[dict] = None,
                       save_video: bool = True, save_ckpt: bool = True,
                       frame_offset: int = 0, first_saved_frame: int = 0,
-                      psnr_marker: bool = True) -> Tuple[np.ndarray, float]:
+                      psnr_marker: bool = True, mesh: Optional[Mesh] = None
+                      ) -> Tuple[np.ndarray, float]:
     """Render, write the output PNGs, the PSNR marker, the mp4 and the
     checkpoint.  Returns (rendered (T, H, W, 3), mean PSNR).
 
@@ -284,23 +293,26 @@ def evaluate_and_save(params: Params, specs: AtlasSpecs, data: VideoData,
     overlap, already written by the chunk before it), and the PSNR averages
     the written frames only.  `save_video`, `save_ckpt` and `psnr_marker`
     turn off the mp4, the checkpoint and the marker file (the chunked path
-    writes them once for the whole video)."""
+    writes them once for the whole video).  With `mesh` every rank renders
+    its block of the frames (`render_frames`) and gets the whole video and
+    its PSNR; only rank 0 writes."""
     from ..io.media import frames_to_video, write_image
+
+    T, (H, W) = data.num_frames, data.res
+    video_np = np.asarray(data.video)
+    rendered = render_frames(params, specs, T, H, W, mesh=mesh)
+    psnrs = np.array([psnr(video_np[f], rendered[f], data_range=1.0)
+                      for f in range(first_saved_frame, T)])
+    mean_psnr = float(psnrs.mean())
+    if not is_main(mesh):
+        return rendered, mean_psnr
 
     results_folder = Path(results_folder)
     out_dir = results_folder / "output"
     out_dir.mkdir(parents=True, exist_ok=True)
-
-    T, (H, W) = data.num_frames, data.res
-    video_np = np.asarray(data.video)
-    rendered = render_frames(params, specs, T, H, W)
-    psnrs = np.zeros(T - first_saved_frame)
     for f in range(first_saved_frame, T):
         write_image(rendered[f], out_dir / f"{f + frame_offset:05d}.png")
-        psnrs[f - first_saved_frame] = psnr(video_np[f], rendered[f],
-                                            data_range=1.0)
 
-    mean_psnr = float(psnrs.mean())
     # PSNR marker file, like the reference's `PSNR_<val>` (evaluate.py:782-783)
     if psnr_marker:
         (results_folder / f"PSNR_{mean_psnr:.2f}").touch()

@@ -3,6 +3,8 @@
     python -m deflicker_torch.cli.batch --videos a.mp4 b.mp4 [--gpu N]
     python -m deflicker_torch.cli.batch --video_dir clips/ --parallel_fit \
         [--class_name C]
+    python -m deflicker_torch.cli.batch --dcn --coordinator host0:29500 \
+        --num_processes H --process_id k --video_dir clips/
 
 The default mode runs one full pipeline per video, one after another.
 `--parallel_fit` runs flow per video, then ONE V-batched atlas fit per group
@@ -10,10 +12,17 @@ of same-shaped videos (atlas/multifit.py: every network query of a step is
 one kernel launch for the whole group), then the renders, then stage 2 with
 the videos of each resolution advancing in lockstep
 (`FilterEngine.run_multi`).  Videos longer than `maximum_number_of_frames`
-go through the pipeline's chunked path instead.  Spreading videos over
-hosts (`--dcn` in the JAX package) is not ported.
+go through the pipeline's chunked path instead.
 
-Prints one JSON line per video and an aggregate line.
+Every visible card takes part: with several, the videos' work spreads over
+one rank a card (parallel/mesh.py: the fit's samples or a group's video
+axis, the renders' frames, the flow pairs and the U-Net frames).
+`--dcn` spreads the videos over hosts: the hosts meet once at the
+coordinator, each takes a round-robin share of the list and prints
+{"process", "processes", "videos_assigned"}, and the ranks of one host
+(under `torchrun`) share its videos (parallel/multihost.py).
+
+Prints one JSON line per video and an aggregate line (rank 0 of a host).
 """
 
 from __future__ import annotations
@@ -25,6 +34,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from ..parallel.mesh import barrier, broadcast_object, is_main
 
 
 def _pipe_cfg(video, args):
@@ -38,12 +49,26 @@ def _pipe_cfg(video, args):
         stage2_dtype=args.stage2_precision, stage2_unpad=args.stage2_unpad)
 
 
-def run_batch_parallel(videos, args, atlas_cfg, device=None) -> dict:
+def _prepare(cfg, mesh):
+    """`prepare_frames` on rank 0, its frame folder on every rank."""
+    from .pipeline import prepare_frames
+
+    return broadcast_object(prepare_frames(cfg) if is_main(mesh) else None,
+                            mesh)
+
+
+def _print(rec: dict, mesh) -> None:
+    if is_main(mesh):
+        print(json.dumps(rec), flush=True)
+
+
+def run_batch_parallel(videos, args, atlas_cfg, device=None,
+                       mesh=None) -> dict:
     """Group-parallel pipeline on `device` (default: the card; raises without
     one unless device="cpu"): flow per video, one V-batched fit per
     same-shape group, render per video, stage 2 per same-resolution group.
     Returns the aggregate summary with a record per video and the stage
-    times."""
+    times.  With `mesh` every rank calls it alike on its own device."""
     from ..atlas import build_specs, load_video_data
     from ..atlas.multifit import fit_group, group_by_shape, save_group
     from ..filter import load_filter_engine
@@ -52,9 +77,9 @@ def run_batch_parallel(videos, args, atlas_cfg, device=None) -> dict:
     from ..utils.device import (resolve_device, set_fp32_matmul_precision,
                                 synchronize)
     from .pipeline import (_generators, _stage1_resolution,
-                           make_flow_provider, prepare_frames, run_pipeline)
+                           make_flow_provider, run_pipeline)
 
-    device = resolve_device(device)
+    device = resolve_device(mesh.device if mesh is not None else device)
     set_fp32_matmul_precision()
     dual = args.class_name is not None
     results_root = Path(args.results_root)
@@ -65,19 +90,20 @@ def run_batch_parallel(videos, args, atlas_cfg, device=None) -> dict:
     flow_provider = None
     for v in videos:
         cfg = _pipe_cfg(v, args)
-        fd = prepare_frames(cfg)
+        fd = _prepare(cfg, mesh)
         if len(list_frames(fd)) > atlas_cfg.maximum_number_of_frames:
             long_videos.append(v)
             continue
-        if dual:
+        if dual and is_main(mesh):
             from ..seg import get_mask_provider, preprocess_masks
 
             preprocess_masks(fd, get_mask_provider(args.class_name,
                                                    args.mask_provider))
+        barrier(mesh)
         if flow_provider is None:
-            flow_provider = make_flow_provider(cfg, device)
+            flow_provider = make_flow_provider(cfg, device, mesh)
         preprocess_optical_flow(fd, flow_provider,
-                                max_long_edge=cfg.max_long_edge)
+                                max_long_edge=cfg.max_long_edge, mesh=mesh)
         resy, resx = _stage1_resolution(fd, args.down, dual)
         frames_dirs.append(fd)
         datas.append(load_video_data(fd, resy, resx,
@@ -93,7 +119,8 @@ def run_batch_parallel(videos, args, atlas_cfg, device=None) -> dict:
     for g, idxs in enumerate(group_by_shape(datas).values()):
         # seeds seed + 4g .. seed + 4g + 3: each group draws its own streams
         fit = fit_group([datas[i] for i in idxs], specs, atlas_cfg,
-                        _generators(atlas_cfg.seed + 4 * g, device), device)
+                        _generators(atlas_cfg.seed + 4 * g, device), device,
+                        mesh=mesh)
         times["t_pretrain"] += fit["t_pretrain"]
         times["t_fit"] += fit["t_fit"]
         video_iters += len(idxs) * fit["results"][0].iteration
@@ -101,14 +128,16 @@ def run_batch_parallel(videos, args, atlas_cfg, device=None) -> dict:
         outputs = []
         for i in idxs:
             folder = results_root / frames_dirs[i].name / "stage_1"
-            folder.mkdir(parents=True, exist_ok=True)
-            with open(folder / "config.json", "w") as f:
-                json.dump(atlas_cfg.to_reference_json(), f, indent=4)
+            if is_main(mesh):
+                folder.mkdir(parents=True, exist_ok=True)
+                with open(folder / "config.json", "w") as f:
+                    json.dump(atlas_cfg.to_reference_json(), f, indent=4)
             outputs.append(dict(folder=folder, texture=folder / "texture"))
         for i, p in zip(idxs, save_group(fit["results"], specs,
                                          [datas[i] for i in idxs], atlas_cfg,
-                                         outputs)):
+                                         outputs, mesh)):
             psnrs[i] = p
+        barrier(mesh)
         synchronize(device)
         times["t_render"] += time.time() - t3
 
@@ -117,7 +146,7 @@ def run_batch_parallel(videos, args, atlas_cfg, device=None) -> dict:
     engine = load_filter_engine(args.ckpt_filter, args.ckpt_local,
                                 device=device,
                                 dtype=getattr(torch, args.stage2_precision),
-                                unpad=args.stage2_unpad)
+                                unpad=args.stage2_unpad, mesh=mesh)
     res_groups = {}
     for i, fd in enumerate(frames_dirs):
         res_groups.setdefault(read_image(list_frames(fd)[0]).shape[:2],
@@ -135,18 +164,20 @@ def run_batch_parallel(videos, args, atlas_cfg, device=None) -> dict:
     for i, fd in enumerate(frames_dirs):
         per_video.append({"video": fd.name, "frames": datas[i].num_frames,
                           "psnr": psnrs[i]})
-        print(json.dumps(per_video[-1]))
+        _print(per_video[-1], mesh)
 
     # videos past the atlas cap: the pipeline's chunked path, reusing the
     # loaded flow model and stage-2 engine
     for v in long_videos:
         if flow_provider is None:
-            flow_provider = make_flow_provider(_pipe_cfg(v, args), device)
+            flow_provider = make_flow_provider(_pipe_cfg(v, args), device,
+                                               mesh)
         out = run_pipeline(_pipe_cfg(v, args), atlas_cfg, device=device,
-                           flow_provider=flow_provider, filter_engine=engine)
+                           flow_provider=flow_provider, filter_engine=engine,
+                           mesh=mesh)
         per_video.append({"video": Path(v).stem, "frames": out["num_frames"],
                           "psnr": out["psnr"], "chunks": out.get("chunks")})
-        print(json.dumps(per_video[-1]))
+        _print(per_video[-1], mesh)
 
     dt = time.time() - t0
     frames = sum(r["frames"] for r in per_video)
@@ -155,7 +186,7 @@ def run_batch_parallel(videos, args, atlas_cfg, device=None) -> dict:
                "video_iters_per_sec": (video_iters / times["t_fit"]
                                        if times["t_fit"] > 0 else 0.0),
                **times}
-    print(json.dumps(summary))
+    _print(summary, mesh)
     return {**summary, "per_video": per_video}
 
 
@@ -196,16 +227,47 @@ def build_parser() -> argparse.ArgumentParser:
                         "exact crop (default) or the reference's "
                         "unpad-by-resize quirk")
     p.add_argument("--dcn", action="store_true",
-                   help="multi-host fan-out: not ported (ROADMAP.md, item 17)")
+                   help="multi-host fan-out: join the hosts (--coordinator, "
+                        "--num_processes, --process_id, or their JAX_* / "
+                        "torchrun environment variables) and process this "
+                        "host's round-robin share of the video list "
+                        "(parallel/multihost.py)")
+    p.add_argument("--coordinator", default=None, type=str,
+                   help="host:port where the hosts meet (with --dcn)")
+    p.add_argument("--num_processes", default=None, type=int,
+                   help="number of hosts (with --dcn)")
+    p.add_argument("--process_id", default=None, type=int,
+                   help="this host's index (with --dcn)")
     return p
+
+
+def _run(mesh, videos, args, atlas_cfg, device) -> int:
+    """The batch on this rank's device (every rank of `mesh` alike)."""
+    from .pipeline import run_pipeline
+
+    if mesh is not None:
+        device = mesh.device
+    if args.parallel_fit:
+        run_batch_parallel(videos, args, atlas_cfg, device=device, mesh=mesh)
+        return 0
+
+    t0 = time.time()
+    total_frames = 0
+    for v in videos:
+        out = run_pipeline(_pipe_cfg(v, args), atlas_cfg, device=device,
+                           mesh=mesh)
+        total_frames += out["num_frames"]
+        _print({"video": Path(v).stem, "frames": out["num_frames"],
+                "t_total": out["t_total"], "psnr": out["psnr"]}, mesh)
+    dt = time.time() - t0
+    _print({"videos": len(videos), "frames": total_frames, "t_total": dt,
+            "frames_per_sec": total_frames / dt}, mesh)
+    return 0
 
 
 def main(argv=None, device=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    if args.dcn:
-        raise NotImplementedError("--dcn (spreading videos over hosts) is not "
-                                  "ported yet: ROADMAP.md, item 17")
     videos = list(args.videos or [])
     if args.video_dir:
         for ext in ("*.mp4", "*.avi", "*.mov"):
@@ -214,8 +276,9 @@ def main(argv=None, device=None) -> int:
         p.error("no videos given (use --videos or --video_dir)")
 
     from ..config import AtlasConfig, load_atlas_config
+    from ..parallel import assign_videos, init_distributed, local_mesh
+    from ..parallel.mesh import run_on_mesh
     from ..utils.device import resolve_device
-    from .pipeline import run_pipeline
 
     device = resolve_device(f"cuda:{args.gpu}" if device is None else device)
     cfg_path = Path(args.config)
@@ -226,21 +289,18 @@ def main(argv=None, device=None) -> int:
             atlas_cfg, iters_num=args.iters,
             evaluate_every=max(1, args.iters - 1))
 
-    if args.parallel_fit:
-        run_batch_parallel(videos, args, atlas_cfg, device=device)
-        return 0
-
-    t0 = time.time()
-    total_frames = 0
-    for v in videos:
-        out = run_pipeline(_pipe_cfg(v, args), atlas_cfg, device=device)
-        total_frames += out["num_frames"]
-        print(json.dumps({"video": Path(v).stem, "frames": out["num_frames"],
-                          "t_total": out["t_total"], "psnr": out["psnr"]}))
-    dt = time.time() - t0
-    print(json.dumps({"videos": len(videos), "frames": total_frames,
-                      "t_total": dt, "frames_per_sec": total_frames / dt}))
-    return 0
+    if not args.dcn:
+        return run_on_mesh(_run, None, device,
+                           (videos, args, atlas_cfg, device)) or 0
+    # the video axis splits over the hosts, so no collective spans them:
+    # within a host only its own ranks work together
+    pid, nproc = init_distributed(args.coordinator, args.num_processes,
+                                  args.process_id)
+    videos = assign_videos(videos, pid, nproc)
+    mesh = local_mesh()
+    _print({"process": pid, "processes": nproc,
+            "videos_assigned": len(videos)}, mesh)
+    return _run(mesh, videos, args, atlas_cfg, device) if videos else 0
 
 
 if __name__ == "__main__":

@@ -4,6 +4,11 @@ framework extensions, running the port on a CUDA device.
     python -m deflicker_torch --video_name data/test/X.mp4 [--gpu N]
     python -m deflicker_torch --video_name data/test/X.mp4 --class_name dog \
         [--mask_provider grabcut]          # dual atlas (fg + bg layers)
+    python -m deflicker_torch --video_name X.mp4 --mesh_devices 2
+
+`--mesh_devices N` runs the pipeline on N ranks, one card each (N ranks
+spawned here; under `torchrun` its ranks); the default is every visible
+card, so one card runs one process (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -69,6 +74,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mask backend of the dual-atlas path (default: "
                         "carvekit for class 'portrait', Mask-RCNN otherwise; "
                         "grabcut needs no extra package)")
+    p.add_argument("--mesh_devices", default=None, type=int,
+                   help="ranks (one card each) to shard the fit, render, "
+                        "flow and stage 2 over (default: every visible "
+                        "card)")
     return p
 
 
@@ -99,7 +108,16 @@ def args_to_configs(args) -> tuple[PipelineConfig, AtlasConfig]:
     return cfg, atlas_cfg
 
 
-def main(argv=None) -> int:
+def _pipeline(mesh, cfg, atlas_cfg, device):
+    from .pipeline import run_pipeline
+
+    out = run_pipeline(cfg, atlas_cfg, device=device, mesh=mesh)
+    return {k: v for k, v in out.items() if not isinstance(v, Path)}
+
+
+def main(argv=None, device=None) -> int:
+    """`device` overrides `cuda:<--gpu>` (the tests pass "cpu"); with
+    several ranks each takes its own card."""
     args = build_parser().parse_args(argv)
     if args.video_name is None and args.video_frame_folder is None:
         print("error: need --video_name or --video_frame_folder",
@@ -107,9 +125,12 @@ def main(argv=None) -> int:
         return 2
     cfg, atlas_cfg = args_to_configs(args)
 
-    from .pipeline import run_pipeline
+    from ..parallel.mesh import run_on_mesh
+    from ..utils.device import resolve_device
 
-    run_pipeline(cfg, atlas_cfg, device=f"cuda:{args.gpu}")
+    device = resolve_device(f"cuda:{args.gpu}" if device is None else device)
+    run_on_mesh(_pipeline, args.mesh_devices, device,
+                (cfg, atlas_cfg, device))
     return 0
 
 

@@ -9,6 +9,12 @@ on one device, with RAFT flow when a RAFT checkpoint is on disk.  A video
 longer than `maximum_number_of_frames` takes the chunked path: equal chunks
 fit at once as one multi-video group (atlas/multifit.py), every frame is
 rendered, and stage 2 runs unbroken over the whole video.
+
+With a mesh (parallel/mesh.py) every rank calls the same stage functions
+with the same arguments: the flow pairs, the fit's sample batch (the
+chunked fit's video axis), the render's frames and stage 2's U-Net frames
+split over the ranks, and rank 0 alone writes, with a barrier wherever the
+others next read what it wrote.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from ..atlas import (build_specs, evaluate_and_save, export_atlas_artifacts,
 from ..config import AtlasConfig, PipelineConfig, load_atlas_config
 from ..flow import FarnebackFlow, RAFTFlow, preprocess_optical_flow
 from ..io.media import list_frames, read_image, video_to_frames
+from ..parallel.mesh import Mesh, barrier, broadcast_object, is_main
 from ..utils.checkpoint import host_adam_state, load_checkpoint
 from ..utils.convert import atlas_params_from_jax
 from ..utils.device import (resolve_device, set_fp32_matmul_precision,
@@ -60,13 +67,32 @@ def prepare_frames(cfg: PipelineConfig) -> Path:
     return frames_dir
 
 
-def make_flow_provider(cfg: PipelineConfig, device=None):
+class _NullLogger:
+    """The ScalarLogger of a rank that writes nothing."""
+
+    def log(self, step, scalars) -> None:
+        pass
+
+    def log_image(self, step, tag, image) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _logger(folder: Path, mesh: Optional[Mesh]):
+    return ScalarLogger(folder) if is_main(mesh) else _NullLogger()
+
+
+def make_flow_provider(cfg: PipelineConfig, device=None,
+                       mesh: Optional[Mesh] = None):
     """RAFT on `device` when its checkpoint is on disk (the torch `.pth` or
-    the JAX package's converted file), else Farneback on the host."""
+    the JAX package's converted file), else Farneback on the host.  With
+    `mesh`, RAFT runs on the rank's device and splits each pair batch."""
     ckpt = Path(cfg.ckpt_raft)
     for candidate in (ckpt, ckpt.with_suffix(".pth")):
         if candidate.exists():
-            return RAFTFlow(candidate, device=device)
+            return RAFTFlow(candidate, device=device, mesh=mesh)
     print(f"[deflicker_torch] RAFT checkpoint {ckpt} not found — "
           "falling back to Farneback flow (reduced quality)")
     return FarnebackFlow()
@@ -110,7 +136,8 @@ def _chunk_starts(T_all: int, cap: int):
 
 def _run_stage1_chunked(frames_dir: Path, atlas_cfg: AtlasConfig,
                         device: torch.device, dual: bool, resy: int, resx: int,
-                        results_folder: Path) -> Dict:
+                        results_folder: Path, mesh: Optional[Mesh] = None
+                        ) -> Dict:
     """Long-video stage 1: T > maximum_number_of_frames (the JAX package's
     `_run_stage1_chunked`).
 
@@ -130,7 +157,8 @@ def _run_stage1_chunked(frames_dir: Path, atlas_cfg: AtlasConfig,
     uninterrupted run's samples.  A group checkpoint of the JAX package
     (`opt_state_v`, `key_data`) resumes its params, Adam moments and
     iteration; its JAX PRNG state cannot be replayed here, so the samples
-    restart from the port's fit generator."""
+    restart from the port's fit generator.  With `mesh` the chunks split
+    over the ranks (`multifit.fit_group`)."""
     from ..atlas.multifit import fit_group, save_group
     from ..utils.checkpoint import save_checkpoint
 
@@ -143,15 +171,16 @@ def _run_stage1_chunked(frames_dir: Path, atlas_cfg: AtlasConfig,
     datas = [load_video_data(frames_dir, resy, resx, size, use_masks=dual,
                              start_frame=s) for s in starts]
     # masked-flow / input diagnostic videos, one set per chunk
-    for k, d in enumerate(datas):
+    for k, d in enumerate(datas if is_main(mesh) else ()):
         save_mask_flow_videos(d, results_folder / f"chunk_{k:02d}")
     specs = build_specs(atlas_cfg, dual=dual)
     ckpt_file = results_folder / "checkpoint"
 
     def save_group_ckpt(iteration, state):
-        save_checkpoint(ckpt_file, {**state, "iteration": int(iteration),
-                                    "chunk_starts": starts, "chunk_size": size,
-                                    "dual": dual})
+        if is_main(mesh):
+            save_checkpoint(ckpt_file, {**state, "iteration": int(iteration),
+                                        "chunk_starts": starts,
+                                        "chunk_size": size, "dual": dual})
 
     resume = None
     if atlas_cfg.load_checkpoint:
@@ -180,12 +209,12 @@ def _run_stage1_chunked(frames_dir: Path, atlas_cfg: AtlasConfig,
                       f"this chunking ({c.get('chunk_starts')} vs {starts}) — "
                       "starting fresh")
 
-    logger = ScalarLogger(results_folder)
+    logger = _logger(results_folder, mesh)
     fit = fit_group(
         datas, specs, atlas_cfg, _generators(atlas_cfg.seed, device), device,
         resume=resume, checkpoint_callback=save_group_ckpt,
         log_callback=lambda i, v, rec: logger.log(
-            i, {f"chunk{v}/{k}": val for k, val in rec.items()}))
+            i, {f"chunk{v}/{k}": val for k, val in rec.items()}), mesh=mesh)
     results = fit["results"]
 
     t3 = time.time()
@@ -197,12 +226,13 @@ def _run_stage1_chunked(frames_dir: Path, atlas_cfg: AtlasConfig,
             texture=results_folder / "texture" / f"chunk_{k:02d}",
             frame_offset=starts[k], first_saved_frame=max(0, prev_end - starts[k]),
             save_video=(k == n - 1), save_ckpt=False, psnr_marker=False))
-    psnrs = save_group(results, specs, datas, atlas_cfg, outputs)
+    psnrs = save_group(results, specs, datas, atlas_cfg, outputs, mesh)
     # weighted by written frames: the backward-anchored last chunk writes
     # fewer frames than it fits
     weights = [size - o["first_saved_frame"] for o in outputs]
     mean_psnr = float(np.average(psnrs, weights=weights))
-    (results_folder / f"PSNR_{mean_psnr:.2f}").touch()
+    if is_main(mesh):
+        (results_folder / f"PSNR_{mean_psnr:.2f}").touch()
     synchronize(device)
     t_render = time.time() - t3
     logger.close()
@@ -236,7 +266,7 @@ def fit_profiler(device: torch.device):
 def run_stage1(frames_dir: Path, cfg: PipelineConfig,
                atlas_cfg: AtlasConfig, device, dual: bool = False,
                results_root: Optional[Path] = None,
-               flow_provider=None) -> Dict:
+               flow_provider=None, mesh: Optional[Mesh] = None) -> Dict:
     """Flow preprocessing + atlas fit + render
     (src/stage1_neural_atlas[_seg].py main()).  `dual` reads the
     `<vid>_seg` masks, fits mapping2 and alpha beside mapping1 and the
@@ -246,35 +276,41 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
     `iters_per_sec` then counts video-iterations (chunks x steps).  With
     `load_checkpoint` and `checkpoint_path` set, the fit resumes from a
     checkpoint of this package or of the JAX package.  DEFLICKER_PROFILE
-    traces the fit (`fit_profiler`)."""
-    device = torch.device(device)
+    traces the fit (`fit_profiler`).  With `mesh` (every rank calls it
+    alike, `device` is the rank's) the flow pairs, the fit's samples and
+    the render's frames split over the ranks; rank 0 writes, and all
+    return once the stage's files are on disk."""
+    device = torch.device(mesh.device if mesh is not None else device)
     t0 = time.time()
     if flow_provider is None:
-        flow_provider = make_flow_provider(cfg, device)
+        flow_provider = make_flow_provider(cfg, device, mesh)
     preprocess_optical_flow(frames_dir, flow_provider,
-                            max_long_edge=cfg.max_long_edge)
+                            max_long_edge=cfg.max_long_edge, mesh=mesh)
     t_flow = time.time() - t0
 
     vid = frames_dir.name
     results_root = Path(results_root or cfg.results_root)
     results_folder = results_root / vid / "stage_1"
-    results_folder.mkdir(parents=True, exist_ok=True)
-    with open(results_folder / "config.json", "w") as f:
-        json.dump(atlas_cfg.to_reference_json(), f, indent=4)
+    if is_main(mesh):
+        results_folder.mkdir(parents=True, exist_ok=True)
+        with open(results_folder / "config.json", "w") as f:
+            json.dump(atlas_cfg.to_reference_json(), f, indent=4)
 
     resy, resx = _stage1_resolution(frames_dir, cfg.down, dual)
     T_all = len(list_frames(frames_dir))
     if T_all > atlas_cfg.maximum_number_of_frames:
         out = _run_stage1_chunked(frames_dir, atlas_cfg, device, dual, resy,
-                                  resx, results_folder)
+                                  resx, results_folder, mesh)
         out.update(results_folder=results_folder, t_flow=t_flow)
+        barrier(mesh)
         return out
 
     data = load_video_data(frames_dir, resy, resx,
                            atlas_cfg.maximum_number_of_frames,
                            use_masks=dual)
     T, (H, W) = data.num_frames, data.res
-    save_mask_flow_videos(data, results_folder)
+    if is_main(mesh):
+        save_mask_flow_videos(data, results_folder)
 
     specs = build_specs(atlas_cfg, dual=dual)
     g_init, g_pre, g_fit, g_pre2 = _generators(atlas_cfg.seed, device)
@@ -302,18 +338,19 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
         synchronize(device)
         t_pretrain = time.time() - t1
 
-    logger = ScalarLogger(results_folder)
+    logger = _logger(results_folder, mesh)
 
     def eval_cb(iteration, p, opt):
         evaluate_and_save(p, specs, data, atlas_cfg, results_folder,
-                          iteration, opt)
+                          iteration, opt, mesh=mesh)
 
     with fit_profiler(device):
         t2 = time.time()
         result = fit_atlas(params, specs, data, atlas_cfg, g_fit,
                            start_iteration=start_iteration,
                            opt_state=opt_state, eval_callback=eval_cb,
-                           log_callback=lambda i, rec: logger.log(i, rec))
+                           log_callback=lambda i, rec: logger.log(i, rec),
+                           mesh=mesh)
         synchronize(device)
         t_fit = time.time() - t2        # the trace's export is not in it
 
@@ -321,8 +358,8 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
     t3 = time.time()
     rendered, mean_psnr = evaluate_and_save(
         result.params, specs, data, atlas_cfg, results_folder,
-        result.iteration - 1, result.opt_state)
-    if dual:
+        result.iteration - 1, result.opt_state, mesh=mesh)
+    if dual and is_main(mesh):
         # fg/bg texture PNGs + alpha maps (the dual evaluator's artifact
         # set, reference: evaluate.py:203-602)
         export_atlas_artifacts(result.params, specs, data,
@@ -332,6 +369,7 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
     logger.log_image(result.iteration - 1, "reconstruction", rendered[0])
     logger.log_image(result.iteration - 1, "input", np.asarray(data.video[0]))
     logger.close()
+    barrier(mesh)
 
     iters_done = result.iteration - start_iteration
     return {
@@ -350,11 +388,13 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
 
 def run_stage2(frames_dir: Path, cfg: PipelineConfig, device,
                results_root: Optional[Path] = None,
-               style_dir: Optional[Path] = None, engine=None) -> Dict:
-    """Neural filter + local refinement (src/neural_filter_and_refinement.py)."""
+               style_dir: Optional[Path] = None, engine=None,
+               mesh: Optional[Mesh] = None) -> Dict:
+    """Neural filter + local refinement (src/neural_filter_and_refinement.py).
+    With `mesh` the U-Net frames split over the ranks and rank 0 writes."""
     from ..filter import load_filter_engine
 
-    device = torch.device(device)
+    device = torch.device(mesh.device if mesh is not None else device)
     vid = frames_dir.name
     results_root = Path(results_root or cfg.results_root)
     style_dir = style_dir or results_root / vid / "stage_1" / "output"
@@ -363,7 +403,7 @@ def run_stage2(frames_dir: Path, cfg: PipelineConfig, device,
         engine = load_filter_engine(cfg.ckpt_filter, cfg.ckpt_local,
                                     device=device,
                                     dtype=getattr(torch, cfg.stage2_dtype),
-                                    unpad=cfg.stage2_unpad)
+                                    unpad=cfg.stage2_unpad, mesh=mesh)
     engine.run(frames_dir, style_dir, results_root / vid, fps=cfg.fps,
                return_output=False)
     synchronize(device)
@@ -372,10 +412,14 @@ def run_stage2(frames_dir: Path, cfg: PipelineConfig, device,
 
 
 def run_pipeline(cfg: PipelineConfig, atlas_cfg: Optional[AtlasConfig] = None,
-                 device=None, flow_provider=None, filter_engine=None) -> Dict:
+                 device=None, flow_provider=None, filter_engine=None,
+                 mesh: Optional[Mesh] = None) -> Dict:
     """The full test.py-equivalent pipeline on `device` (default
     `cuda:<cfg.gpu>`; raises without a CUDA device unless device="cpu").
-    Returns a metrics dict."""
+    Returns a metrics dict.  With `mesh` every rank calls it alike, on its
+    rank's device; every rank returns the same metrics."""
+    if mesh is not None:
+        device = mesh.device
     device = resolve_device(f"cuda:{cfg.gpu}" if device is None else device)
     set_fp32_matmul_precision()
     if atlas_cfg is None:
@@ -384,38 +428,46 @@ def run_pipeline(cfg: PipelineConfig, atlas_cfg: Optional[AtlasConfig] = None,
                      else AtlasConfig())
 
     t_start = time.time()
-    frames_dir = prepare_frames(cfg)
     dual = cfg.class_name is not None
-    if dual:
-        from ..seg import get_mask_provider, preprocess_masks
+    frames_dir = None
+    if is_main(mesh):
+        frames_dir = prepare_frames(cfg)
+        if dual:
+            from ..seg import get_mask_provider, preprocess_masks
 
-        provider = get_mask_provider(cfg.class_name, cfg.mask_provider)
-        preprocess_masks(frames_dir, provider)
+            provider = get_mask_provider(cfg.class_name, cfg.mask_provider)
+            preprocess_masks(frames_dir, provider)
+    frames_dir = broadcast_object(frames_dir, mesh)   # a barrier too
     s1 = run_stage1(frames_dir, cfg, atlas_cfg, device, dual=dual,
-                    flow_provider=flow_provider)
-    s2 = run_stage2(frames_dir, cfg, device, engine=filter_engine)
+                    flow_provider=flow_provider, mesh=mesh)
+    s2 = run_stage2(frames_dir, cfg, device, engine=filter_engine, mesh=mesh)
 
     total = time.time() - t_start
     out = {**s1, **s2, "t_total": total,
            "frames_per_sec": s1["num_frames"] / total}
 
     # final-output temporal-consistency metrics (E_warp reads the cached
-    # flow).  No blanket except: a fault here must surface.
+    # flow), on rank 0.  No blanket except: a fault here must surface.
     from .evaluate import compute_video_metrics
 
-    m = compute_video_metrics(frames_dir, s2["final_dir"], device=device)
-    out["final_psnr"] = m["psnr_mean"]
-    if "ewarp_mean" in m:
-        out["final_ewarp"] = m["ewarp_mean"]
-        m_in = compute_video_metrics(frames_dir, frames_dir, device=device)
-        out["input_ewarp"] = m_in.get("ewarp_mean")
+    metrics = {}
+    if is_main(mesh):
+        m = compute_video_metrics(frames_dir, s2["final_dir"], device=device)
+        metrics["final_psnr"] = m["psnr_mean"]
+        if "ewarp_mean" in m:
+            metrics["final_ewarp"] = m["ewarp_mean"]
+            m_in = compute_video_metrics(frames_dir, frames_dir,
+                                         device=device)
+            metrics["input_ewarp"] = m_in.get("ewarp_mean")
+    out.update(broadcast_object(metrics, mesh))
 
     ew = (f", E_warp {out['input_ewarp']*100:.3f} -> "
           f"{out['final_ewarp']*100:.3f} (x100)"
           if out.get("final_ewarp") is not None else "")
-    print(f"[deflicker_torch] {frames_dir.name}: {s1['num_frames']} frames in "
-          f"{total:.1f}s ({out['frames_per_sec']:.2f} fps end-to-end), "
-          f"stage-1 PSNR {s1['psnr']:.2f} dB, "
-          f"fit {s1['iters_per_sec']:.1f} it/s{ew}, "
-          f"final PSNR {out['final_psnr']:.2f} dB")
+    if is_main(mesh):
+        print(f"[deflicker_torch] {frames_dir.name}: {s1['num_frames']} "
+              f"frames in {total:.1f}s ({out['frames_per_sec']:.2f} fps "
+              f"end-to-end), stage-1 PSNR {s1['psnr']:.2f} dB, "
+              f"fit {s1['iters_per_sec']:.1f} it/s{ew}, "
+              f"final PSNR {out['final_psnr']:.2f} dB")
     return out

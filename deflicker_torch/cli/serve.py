@@ -17,6 +17,11 @@ disk.
 Job keys mirror `Deflickerer.process`: video | frame_folder, and optional
 class_name / down / fps / iters / seed.  Each result line carries the
 pipeline's metrics dict plus "ok" (and "error" when a job failed).
+
+Under `torchrun` with several ranks (one card each) the `Deflickerer`
+spans them (parallel/mesh.py): rank 0 alone reads stdin or the spool and
+hands each job to every rank, all ranks run it together, and rank 0
+writes the results.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import json
 import sys
 import time
 from pathlib import Path
+
+from ..parallel.mesh import broadcast_object, is_main
 
 
 def handle_job(d, job: dict) -> dict:
@@ -50,46 +57,63 @@ def handle_job(d, job: dict) -> dict:
 def serve_lines(d, lines, out=None) -> int:
     """stdin-protocol loop, factored for tests: one JSON job per line,
     one JSON result per line to `out` (sys.stdout when None).  Blank lines
-    are ignored; returns the number of jobs processed."""
+    are ignored; returns the number of jobs processed.  With a mesh on
+    `d`, rank 0 reads `lines` and hands every line to the other ranks."""
     out = sys.stdout if out is None else out
+    mesh = getattr(d, "mesh", None)
+    main = is_main(mesh)
+    lines = iter(lines) if main else None
     n = 0
-    for line in lines:
+    while True:
+        line = broadcast_object(next(lines, None) if main else None, mesh)
+        if line is None:
+            return n
         line = line.strip()
         if not line:
             continue
         try:
             job = json.loads(line)
         except json.JSONDecodeError as e:
-            print(json.dumps({"ok": False, "error": f"bad json: {e}"}),
-                  file=out, flush=True)
+            if main:
+                print(json.dumps({"ok": False, "error": f"bad json: {e}"}),
+                      file=out, flush=True)
             continue
-        print(json.dumps(handle_job(d, job)), file=out, flush=True)
+        res = handle_job(d, job)
+        if main:
+            print(json.dumps(res), file=out, flush=True)
         n += 1
-    return n
 
 
 def serve_watch(d, spool: Path, poll_s: float = 1.0,
                 max_jobs: int | None = None) -> int:
     """Spool-directory loop: pick up `<name>.json` job files (ordered by
     name), write `<name>.result.json` next to each, rename the job file to
-    `<name>.done` so the pickup is idempotent across daemon restarts."""
-    spool.mkdir(parents=True, exist_ok=True)
+    `<name>.done` so the pickup is idempotent across daemon restarts.  With
+    a mesh on `d`, rank 0 polls and hands each job file's text to the
+    other ranks."""
+    mesh = getattr(d, "mesh", None)
+    main = is_main(mesh)
+    if main:
+        spool.mkdir(parents=True, exist_ok=True)
     n = 0
     while max_jobs is None or n < max_jobs:
-        jobs = sorted(p for p in spool.glob("*.json")
-                      if not p.name.endswith(".result.json"))
+        jobs = (sorted(p for p in spool.glob("*.json")
+                       if not p.name.endswith(".result.json"))
+                if main else None)
+        jobs = broadcast_object(
+            [(p, p.read_text()) for p in jobs] if main else None, mesh)
         if not jobs:
             time.sleep(poll_s)
             continue
-        for p in jobs:
+        for p, text in jobs:
             try:
-                job = json.loads(p.read_text())
-                res = handle_job(d, job)
+                res = handle_job(d, json.loads(text))
             except Exception as e:
                 res = {"ok": False, "error": f"{type(e).__name__}: {e}"}
-            (p.parent / (p.stem + ".result.json")).write_text(
-                json.dumps(res, indent=1))
-            p.rename(p.with_suffix(".done"))
+            if main:
+                (p.parent / (p.stem + ".result.json")).write_text(
+                    json.dumps(res, indent=1))
+                p.rename(p.with_suffix(".done"))
             n += 1
             if max_jobs is not None and n >= max_jobs:
                 break
@@ -125,7 +149,9 @@ def main(argv=None, device=None):
     import torch
 
     from ..api import Deflickerer
+    from ..parallel import make_mesh
 
+    make_mesh()      # under torchrun: the world group, for mesh="auto"
     d = Deflickerer(ckpt_raft=args.ckpt_raft, ckpt_filter=args.ckpt_filter,
                     ckpt_local=args.ckpt_local, config=args.config,
                     root=args.root, results_root=args.results_root,
@@ -134,8 +160,9 @@ def main(argv=None, device=None):
                     device=f"cuda:{args.gpu}" if device is None else device)
     name = (torch.cuda.get_device_name(d.device) if d.device.type == "cuda"
             else str(d.device))
-    print(json.dumps({"ok": True, "status": "ready", "device": name}),
-          flush=True)
+    if is_main(d.mesh):
+        print(json.dumps({"ok": True, "status": "ready", "device": name,
+                          "mesh": d.mesh and d.mesh.shape}), flush=True)
     if args.watch:
         n = serve_watch(d, Path(args.watch), poll_s=args.poll_s,
                         max_jobs=args.max_jobs)
@@ -154,8 +181,9 @@ def main(argv=None, device=None):
 
             lines = itertools.takewhile(take, sys.stdin)
         n = serve_lines(d, lines)
-    print(json.dumps({"ok": True, "status": "exit", "jobs": n}),
-          file=sys.stderr, flush=True)
+    if is_main(d.mesh):
+        print(json.dumps({"ok": True, "status": "exit", "jobs": n}),
+              file=sys.stderr, flush=True)
 
 
 if __name__ == "__main__":

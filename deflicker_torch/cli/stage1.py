@@ -8,8 +8,9 @@ Runs flow preprocessing (idempotent), then the atlas fit on `cuda:N`,
 writing `<results_root>/<vid>/stage_1/{output/%05d.png, checkpoint,
 config.json}`.  `--seg` or `--class_name` takes the dual-atlas path, with
 masks from `<root>/<vid>_seg` (written by the mask provider where they are
-missing).  The JAX CLI's `--mesh_devices` has no counterpart: one card
-runs the fit until multi-GPU is ported (ROADMAP.md, item 17).
+missing).  `--mesh_devices N` shards the flow pairs, the fit's samples and
+the render's frames over N ranks, one card each (default: every visible
+card; parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -39,7 +40,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--iters", type=int, default=None)
     p.add_argument("--fit_precision", choices=["highest", "default"],
                    default=None, help="fit matmul precision (see AtlasConfig)")
+    p.add_argument("--mesh_devices", type=int, default=None,
+                   help="ranks (one card each) to shard stage 1 over "
+                        "(default: every visible card)")
     return p
+
+
+def _stage1(mesh, frames_dir, cfg, atlas_cfg, device, dual, args):
+    from ..parallel.mesh import barrier, is_main
+    from ..utils.device import set_fp32_matmul_precision
+    from .pipeline import run_stage1
+
+    set_fp32_matmul_precision()
+    if dual and is_main(mesh):
+        from ..seg import get_mask_provider, preprocess_masks
+
+        preprocess_masks(frames_dir,
+                         get_mask_provider(args.class_name, args.mask_provider))
+    barrier(mesh)
+    out = run_stage1(frames_dir, cfg, atlas_cfg, device, dual=dual, mesh=mesh)
+    if is_main(mesh):
+        print(f"stage 1 done: PSNR {out['psnr']:.2f} dB, "
+              f"{out['iters_per_sec']:.1f} it/s -> {out['results_folder']}")
+    return {"psnr": out["psnr"], "iters_per_sec": out["iters_per_sec"]}
 
 
 def main(argv=None, device=None) -> int:
@@ -48,12 +71,11 @@ def main(argv=None, device=None) -> int:
     from pathlib import Path
 
     from ..config import AtlasConfig, PipelineConfig, load_atlas_config
-    from ..utils.device import resolve_device, set_fp32_matmul_precision
-    from .pipeline import run_stage1
+    from ..parallel.mesh import run_on_mesh
+    from ..utils.device import resolve_device
 
     args = build_parser().parse_args(argv)
     device = resolve_device(f"cuda:{args.gpu}" if device is None else device)
-    set_fp32_matmul_precision()
     dual = args.seg or args.class_name is not None
     cfg = PipelineConfig(root=args.root, results_root=args.results_root,
                          down=args.down, ckpt_raft=args.ckpt_raft,
@@ -72,15 +94,8 @@ def main(argv=None, device=None) -> int:
                                         fit_precision=args.fit_precision)
 
     frames_dir = Path(args.root) / args.vid_name
-    if dual:
-        from ..seg import get_mask_provider, preprocess_masks
-
-        preprocess_masks(frames_dir,
-                         get_mask_provider(args.class_name, args.mask_provider))
-
-    out = run_stage1(frames_dir, cfg, atlas_cfg, device, dual=dual)
-    print(f"stage 1 done: PSNR {out['psnr']:.2f} dB, "
-          f"{out['iters_per_sec']:.1f} it/s -> {out['results_folder']}")
+    run_on_mesh(_stage1, args.mesh_devices, device,
+                (frames_dir, cfg, atlas_cfg, device, dual, args))
     return 0
 
 

@@ -19,6 +19,12 @@ to NCHW for the modules.  `run` streams one video; `run_multi` streams
 several same-resolution videos in lockstep (`refine_span_multi`), each
 video's carry frozen at its own last frame.
 
+With a mesh (parallel/mesh.py) every rank runs `run` / `run_multi` alike:
+each span's U-Net frames split over the ranks and are gathered, the
+refinement of one video runs on every rank (it is sequential), the
+lockstep refinement of several videos splits their axis when it divides
+by the ranks, and rank 0 alone writes.
+
 Output contract (identical to the reference):
   results/<vid>/neural_filter/concat/%05d.png   (content | atlas | filtered)
   results/<vid>/neural_filter/output/%05d.png   (filtered P_t)
@@ -38,6 +44,8 @@ from ..io.media import frames_to_video, list_frames, read_image, write_image
 from ..models.refine import TransformNet
 from ..models.unet import UNet
 from ..ops.pad import Padder
+from ..parallel.mesh import (Mesh, barrier, batch_sharding, block, is_main,
+                             shard_constraint)
 
 
 def _to_u8(x: torch.Tensor) -> np.ndarray:
@@ -131,10 +139,11 @@ def refine_span_multi(tnet: TransformNet,
 class FilterEngine:
     def __init__(self, unet: UNet, tnet: TransformNet, device="cuda",
                  dtype=torch.float32, batch: int = 16, span: int = 32,
-                 unpad: str = "crop"):
+                 unpad: str = "crop", mesh: Optional[Mesh] = None):
         if unpad not in ("crop", "resize"):
             raise ValueError(f"unpad must be 'crop' or 'resize', got {unpad!r}")
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(mesh.device if mesh is not None else device)
         self.dtype = dtype
         # stage2_dtype="bfloat16": weights and input in bf16, output f32
         self.unet = unet.to(device=self.device, dtype=dtype).eval()
@@ -172,13 +181,18 @@ class FilterEngine:
     def _filter_all(self, content: np.ndarray, style: np.ndarray,
                     padder: Padder) -> torch.Tensor:
         """Batched U-Net filtering of a span -> (n, Hp, Wp, 3) f32 on the
-        device."""
-        content_p = padder.pad(torch.from_numpy(content).to(self.device))
-        style_p = padder.pad(torch.from_numpy(style).to(self.device))
+        device (on a mesh, each rank filters its block of the frames)."""
+        n = content.shape[0]
+        content_p = padder.pad(batch_sharding(torch.from_numpy(content),
+                                              self.mesh).to(self.device))
+        style_p = padder.pad(batch_sharding(torch.from_numpy(style),
+                                            self.mesh).to(self.device))
         preds = [filter_frames(self.unet, content_p[s0:s0 + self.batch],
                                style_p[s0:s0 + self.batch], self.dtype)
-                 for s0 in range(0, content.shape[0], self.batch)]
-        return torch.cat(preds, dim=0)
+                 for s0 in range(0, content_p.shape[0], self.batch)]
+        local = (torch.cat(preds, dim=0) if preds else torch.zeros(
+            (0, *content_p.shape[1:3], 3), device=self.device))
+        return shard_constraint(local, self.mesh, 0, n)
 
     def _write_span(self, s0, content, style, preds, refined, results_dir,
                     save_concat, size, padder):
@@ -260,13 +274,14 @@ class FilterEngine:
                     refined = body
                 if offset:
                     refined = torch.cat([preds[:1], refined], dim=0)
-                preds_u8 = _to_u8(preds)
-                refined_u8 = _to_u8(refined)
-                while len(pending) > 2:       # ~2 spans in flight at most
-                    pending.pop(0).result()
-                pending.append(writer.submit(
-                    self._write_span, s0, content, style, preds_u8,
-                    refined_u8, results_dir, save_concat, (W, H), padder))
+                if is_main(self.mesh):
+                    preds_u8 = _to_u8(preds)
+                    refined_u8 = _to_u8(refined)
+                    while len(pending) > 2:       # ~2 spans in flight at most
+                        pending.pop(0).result()
+                    pending.append(writer.submit(
+                        self._write_span, s0, content, style, preds_u8,
+                        refined_u8, results_dir, save_concat, (W, H), padder))
                 if return_output:
                     outputs.append(refined.cpu().numpy())
             for f in pending:
@@ -275,7 +290,9 @@ class FilterEngine:
             reader.shutdown(wait=False)
             writer.shutdown(wait=True)
 
-        self._write_videos(results_dir, save_concat, fps)
+        if is_main(self.mesh):
+            self._write_videos(results_dir, save_concat, fps)
+        barrier(self.mesh)
         return np.concatenate(outputs, axis=0) if return_output else None
 
     @staticmethod
@@ -321,6 +338,10 @@ class FilterEngine:
         S = self.span
         T_max = max(Ts)
         spans = [(s0, min(T_max, s0 + S)) for s0 in range(0, T_max, S)]
+        # the refinement's video axis splits when it divides by the ranks
+        vmesh = (self.mesh if self.mesh is not None and self.mesh.size > 1
+                 and V % self.mesh.size == 0 else None)
+        lo, hi = block(V, vmesh)
 
         def load_span(s0, s1):
             n = s1 - s0
@@ -352,21 +373,30 @@ class FilterEngine:
                 flat = self._filter_all(content.reshape(V * n, H, W, 3),
                                         style.reshape(V * n, H, W, 3), padder)
                 preds = flat.reshape(V, n, *flat.shape[1:])
+                mine = preds[lo:hi]
                 if carry is None:
-                    carry = (preds[:, 0], preds[:, 0])     # O_0 = P_0 per video
-                    body, offset = preds[:, 1:], 1
+                    carry = (mine[:, 0], mine[:, 0])     # O_0 = P_0 per video
+                    body, offset = mine[:, 1:], 1
                 else:
-                    body, offset = preds, 0
+                    body, offset = mine, 0
                 nb = int(body.shape[1])
                 if nb:
                     # each video's real frames of this span's body
-                    nv = np.clip(np.asarray(Ts) - (s0 + offset), 0, nb)
+                    nv = np.clip(np.asarray(Ts[lo:hi]) - (s0 + offset), 0, nb)
                     carry, refined = refine_span_multi(self.tnet, carry, body,
                                                        nv, self.dtype)
                 else:
                     refined = body
+                refined = shard_constraint(refined, vmesh, 0, V)
                 if offset:
                     refined = torch.cat([preds[:, :1], refined], dim=1)
+                if return_output:
+                    for v in range(V):
+                        nreal = min(Ts[v], s1) - s0
+                        if nreal > 0:
+                            outputs[v].append(refined[v, :nreal].cpu().numpy())
+                if not is_main(self.mesh):
+                    continue
                 preds_u8 = _to_u8(preds)
                 refined_u8 = _to_u8(refined)
                 while len(pending) > 2 * V:      # ~2 spans in flight at most
@@ -380,16 +410,16 @@ class FilterEngine:
                         style[v, :nreal], preds_u8[v, :nreal],
                         refined_u8[v, :nreal], rdir, save_concat, (W, H),
                         padder))
-                    if return_output:
-                        outputs[v].append(refined[v, :nreal].cpu().numpy())
             for f in pending:
                 f.result()
         finally:
             reader.shutdown(wait=False)
             writer.shutdown(wait=True)
 
-        for _, _, rdir in metas:
-            self._write_videos(rdir, save_concat, fps)
+        if is_main(self.mesh):
+            for _, _, rdir in metas:
+                self._write_videos(rdir, save_concat, fps)
+        barrier(self.mesh)
         if not return_output:
             return None
         return [np.concatenate(o, axis=0) for o in outputs]
@@ -415,11 +445,13 @@ def _resolve_ckpt(path: Optional[str | Path]) -> Optional[Path]:
 def load_filter_engine(ckpt_filter: Optional[str | Path],
                        ckpt_local: Optional[str | Path], device="cuda",
                        dtype=torch.float32, batch: int = 16, seed: int = 2023,
-                       unpad: str = "crop") -> FilterEngine:
+                       unpad: str = "crop", mesh: Optional[Mesh] = None
+                       ) -> FilterEngine:
     """A FilterEngine from the reference's `.pth` weights (filter/convert.py)
     or the shipped `.ckpt` files (pickled flax trees, converted by
     utils/convert.stage2_from_flax).  Missing weights fall back to seeded
-    random init (smoke runs only)."""
+    random init (smoke runs only).  With `mesh` the engine runs on its
+    rank's device and shares the work with the other ranks."""
     from ..utils.convert import load_stage2_module
 
     fpath = _resolve_ckpt(ckpt_filter)
@@ -436,4 +468,4 @@ def load_filter_engine(ckpt_filter: Optional[str | Path],
     if lpath is not None:
         load_stage2_module(tnet, lpath)
     return FilterEngine(unet, tnet, device=device, dtype=dtype, batch=batch,
-                        unpad=unpad)
+                        unpad=unpad, mesh=mesh)

@@ -8,7 +8,11 @@ src/models/stage_1/raft_wrapper.py), as the JAX package runs it:
   * `<vid>_flow/<fn1>_<fn2>.npy` float32 HxWx2 per direction, idempotent
     (existing files are skipped);
   * the weightless `FarnebackFlow` provider (cv2, on the host) keeps the
-    pipeline runnable when no RAFT checkpoint is on disk.
+    pipeline runnable when no RAFT checkpoint is on disk;
+  * with a mesh (parallel/mesh.py) each batch of pairs splits over the
+    ranks and is gathered (the JAX package pads the batch to a multiple of
+    the devices; here a rank's block may be one pair shorter), and only
+    rank 0 writes the cache.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import torch
 
 from ..io.media import FlowCache, list_frames
 from ..ops.pad import Padder
+from ..parallel.mesh import (Mesh, barrier, batch_sharding, is_main,
+                             shard_constraint)
 from ..utils.device import resolve_device
 
 
@@ -50,14 +56,19 @@ def load_flow_image(path: str | Path, max_long_edge: int = 2000) -> np.ndarray:
 
 class RAFTFlow:
     """RAFT-based provider (the reference's RAFTWrapper role) on `device`
-    (CUDA unless the caller names another; raises without CUDA)."""
+    (CUDA unless the caller names another; raises without CUDA).  With
+    `mesh` (on its rank's device) every rank calls `compute_batch` with the
+    same pairs, solves its block of them and gets them all back."""
 
     def __init__(self, checkpoint: Optional[str | Path] = None,
                  model=None, iters: int = 20, dtype=torch.bfloat16,
-                 device=None, corr_mode: str = "auto"):
+                 device=None, corr_mode: str = "auto",
+                 mesh: Optional[Mesh] = None):
         from .convert import load_raft_checkpoint
 
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
         if model is None:
             if checkpoint is None:
                 raise ValueError("RAFTFlow needs a checkpoint or a model")
@@ -75,7 +86,7 @@ class RAFTFlow:
         """Flow for a batch of pairs: (B, H, W, 3) x2 in [0,255] -> (B, H, W, 2)."""
         from ..models.raft import raft_flow
 
-        _, H, W, _ = im1.shape
+        B, H, W, _ = im1.shape
         if self.dtype == torch.bfloat16:
             # frames originate as uint8 PNGs and the INTER_AREA-resize
             # fractional parts are below bf16 conv noise: uploading uint8
@@ -85,11 +96,17 @@ class RAFTFlow:
         padder = Padder(H, W, divisor=8, mode="sintel")
         # edge replication is exact in any dtype; pad as float, since
         # replicate padding takes no integer tensors
-        x1 = padder.pad(torch.from_numpy(im1).to(self.device).float())
-        x2 = padder.pad(torch.from_numpy(im2).to(self.device).float())
-        _, flow_up = raft_flow(self.model, x1, x2, iters=self.iters,
-                               dtype=self.dtype, corr_mode=self.corr_mode)
-        return padder.unpad(flow_up).cpu().numpy()
+        im1 = batch_sharding(torch.from_numpy(im1), self.mesh)
+        im2 = batch_sharding(torch.from_numpy(im2), self.mesh)
+        if im1.shape[0]:
+            x1 = padder.pad(im1.to(self.device).float())
+            x2 = padder.pad(im2.to(self.device).float())
+            _, flow_up = raft_flow(self.model, x1, x2, iters=self.iters,
+                                   dtype=self.dtype, corr_mode=self.corr_mode)
+            flow = padder.unpad(flow_up)
+        else:           # more ranks than pairs: this rank solves none
+            flow = torch.zeros((0, H, W, 2), device=self.device)
+        return shard_constraint(flow, self.mesh, 0, B).cpu().numpy()
 
     def compute_pair(self, im1: np.ndarray, im2: np.ndarray):
         both = self.compute_batch(np.stack([im1, im2]), np.stack([im2, im1]))
@@ -121,7 +138,8 @@ class FarnebackFlow:
 def preprocess_optical_flow(frames_dir: str | Path, provider: FlowProvider,
                             max_long_edge: int = 2000,
                             verbose: bool = True,
-                            pair_batch: int = 4) -> List[Path]:
+                            pair_batch: int = 4,
+                            mesh: Optional[Mesh] = None) -> List[Path]:
     """Compute+cache flow for all adjacent pairs of `frames_dir`.
 
     Mirrors `preprocess(args)` (src/preprocess_optical_flow.py:10-48):
@@ -131,6 +149,11 @@ def preprocess_optical_flow(frames_dir: str | Path, provider: FlowProvider,
     Uncached pairs run through a provider with `compute_batch` in batches
     of `pair_batch` pairs x 2 directions per call; a provider without it
     (Farneback) runs pair by pair.
+
+    With `mesh` every rank calls it: rank 0 writes the cache (and alone runs
+    a provider without `compute_batch`), the ranks solve each batch
+    together through a provider on the mesh, and all return once the
+    files are on disk.
     """
     frames_dir = Path(frames_dir)
     files = list_frames(frames_dir)
@@ -144,15 +167,18 @@ def preprocess_optical_flow(frames_dir: str | Path, provider: FlowProvider,
             missing.append(k)
 
     def save(k, f12, f21):
+        if not is_main(mesh):
+            return
         cache.save_pair(files[k].name, files[k + 1].name, f12, f21)
         if verbose:
             print(f"flow {files[k].name} <-> {files[k + 1].name}")
 
     if not (hasattr(provider, "compute_batch") and pair_batch > 1):
-        for k in missing:
+        for k in missing if is_main(mesh) else ():
             im1 = load_flow_image(files[k], max_long_edge)
             im2 = load_flow_image(files[k + 1], max_long_edge)
             save(k, *provider.compute_pair(im1, im2))
+        barrier(mesh)
         return out
 
     for s in range(0, len(missing), pair_batch):
@@ -166,4 +192,5 @@ def preprocess_optical_flow(frames_dir: str | Path, provider: FlowProvider,
         n = len(ks)
         for idx, k in enumerate(ks):
             save(k, flows[idx], flows[n + idx])
+    barrier(mesh)
     return out

@@ -8,6 +8,11 @@ one fused forward per network; these functions consume the per-sample
 results.  Every loss reduces over the sample axis (the last one left after
 the channel sums) only, so inputs with a leading video axis give one loss
 per video.
+
+A sharded fit (parallel/mesh.py) holds a block of the batch on each rank:
+there a mean is the local sum over the GLOBAL count (`n`, the batch size)
+and a masked mean over the global mask population (`denoms`), so the
+ranks' partial losses and gradients sum to the unsharded ones.
 """
 
 from __future__ import annotations
@@ -24,32 +29,40 @@ def safe_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.sqrt(torch.clamp(ss, min=1e-24))
 
 
-def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _mean(x: torch.Tensor, n=None) -> torch.Tensor:
+    """Mean over the sample axis, or its sum over `n` samples in all."""
+    return torch.mean(x, dim=-1) if n is None else x.sum(-1) / n
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor,
+                denom=None) -> torch.Tensor:
     """sum(values * mask) / sum(mask) over the sample axis, 0 when the mask
-    is empty."""
+    is empty; `denom` gives sum(mask) over the whole batch."""
     mask = mask.to(values.dtype)
-    denom = mask.sum(-1)
+    if denom is None:
+        denom = mask.sum(-1)
     return torch.where(denom > 0,
                        (values * mask).sum(-1) / denom.clamp(min=1.0),
                        torch.zeros_like(denom))
 
 
-def rgb_loss(rgb_pred: torch.Tensor, rgb_gt: torch.Tensor) -> torch.Tensor:
+def rgb_loss(rgb_pred: torch.Tensor, rgb_gt: torch.Tensor,
+             n=None) -> torch.Tensor:
     """mean ||pred - gt||^2 over the batch (src/stage1_neural_atlas.py:194)."""
-    return torch.mean(torch.sum((rgb_pred - rgb_gt) ** 2, dim=-1), dim=-1)
+    return _mean(torch.sum((rgb_pred - rgb_gt) ** 2, dim=-1), n)
 
 
-def gradient_loss(rgb_pred, rgb_xplus1, rgb_yplus1, dx_gt, dy_gt):
+def gradient_loss(rgb_pred, rgb_xplus1, rgb_yplus1, dx_gt, dy_gt, n=None):
     """Finite-difference color-gradient matching (paper Eq. 7;
     loss_utils.py:134-170)."""
     ex = torch.sum((dx_gt - (rgb_xplus1 - rgb_pred)) ** 2, dim=-1)
     ey = torch.sum((dy_gt - (rgb_yplus1 - rgb_pred)) ** 2, dim=-1)
-    return torch.mean(ex + ey, dim=-1)
+    return _mean(ex + ey, n)
 
 
 def rigidity_loss(uv, uv_yminus, uv_xminus, derivative_amount: float,
                   larger_dim: int, uv_mapping_scale: float = 1.0,
-                  reduce: bool = True) -> torch.Tensor:
+                  reduce: bool = True, n=None) -> torch.Tensor:
     """Jacobian rigidity loss (paper Eq. 9; loss_utils.py:227-278):
     ||JᵀJ||_F + ||(JᵀJ)⁻¹||_F with the reference's (a+1e-3, d+1e-3)
     regularization, plus two floors the reference lacks: a sign-preserving
@@ -80,11 +93,12 @@ def rigidity_loss(uv, uv_yminus, uv_xminus, derivative_amount: float,
     norm_inv = torch.sqrt(torch.clamp(
         inv_a ** 2 + inv_b ** 2 + inv_c ** 2 + inv_d ** 2, min=1e-24))
     per_sample = norm_jtj + norm_inv
-    return torch.mean(per_sample, dim=-1) if reduce else per_sample
+    return _mean(per_sample, n) if reduce else per_sample
 
 
 def flow_loss(uv, uv_match_fwd, uv_match_bwd, mask_fwd, mask_bwd,
-              larger_dim: int, uv_mapping_scale: float, alpha=1.0):
+              larger_dim: int, uv_mapping_scale: float, alpha=1.0,
+              denoms=(None, None)):
     """Optical-flow consistency loss (paper Eq. 11; loss_utils.py:299-322),
     level 0 only (the only level the reference's pipeline reaches).  alpha
     weights each sample; 1.0 on the single-atlas path."""
@@ -97,33 +111,36 @@ def flow_loss(uv, uv_match_fwd, uv_match_bwd, mask_fwd, mask_bwd,
         a = alpha.squeeze(-1)
     else:
         a = alpha
-    return (0.5 * masked_mean(err_bwd * a, mask_bwd)
-            + 0.5 * masked_mean(err_fwd * a, mask_fwd))
+    d_fwd, d_bwd = denoms
+    return (0.5 * masked_mean(err_bwd * a, mask_bwd, d_bwd)
+            + 0.5 * masked_mean(err_fwd * a, mask_fwd, d_fwd))
 
 
 def _squeeze_to(v: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return v.squeeze(-1) if v.dim() == ref.dim() + 1 else v
 
 
-def sparsity_loss(rgb_fg: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+def sparsity_loss(rgb_fg: torch.Tensor, alpha: torch.Tensor,
+                  n=None) -> torch.Tensor:
     """mean ||rgb_fg * (1 - alpha)||^2 (src/stage1_neural_atlas_seg.py:244-248)."""
-    return torch.mean(torch.sum((rgb_fg * (1.0 - alpha)) ** 2, dim=-1), dim=-1)
+    return _mean(torch.sum((rgb_fg * (1.0 - alpha)) ** 2, dim=-1), n)
 
 
-def alpha_bootstrap_loss(alpha: torch.Tensor, mask_gt: torch.Tensor
-                         ) -> torch.Tensor:
+def alpha_bootstrap_loss(alpha: torch.Tensor, mask_gt: torch.Tensor,
+                         n=None) -> torch.Tensor:
     """BCE between squashed alpha and the segmentation mask
     (src/stage1_neural_atlas_seg.py:301-302)."""
     alpha = _squeeze_to(alpha, mask_gt)
-    return torch.mean(-mask_gt * torch.log(alpha)
-                      - (1.0 - mask_gt) * torch.log(1.0 - alpha), dim=-1)
+    return _mean(-mask_gt * torch.log(alpha)
+                 - (1.0 - mask_gt) * torch.log(1.0 - alpha), n)
 
 
 def alpha_flow_loss(alpha, alpha_match_fwd, alpha_match_bwd,
-                    mask_fwd, mask_bwd) -> torch.Tensor:
+                    mask_fwd, mask_bwd, denoms=(None, None)) -> torch.Tensor:
     """L1 alpha consistency along flow (paper Eq. 12; loss_utils.py:385-408)."""
     a = _squeeze_to(alpha, mask_fwd)
     af = _squeeze_to(alpha_match_fwd, mask_fwd)
     ab = _squeeze_to(alpha_match_bwd, mask_fwd)
-    return 0.5 * (masked_mean(torch.abs(a - af), mask_fwd)
-                  + masked_mean(torch.abs(ab - a), mask_bwd))
+    d_fwd, d_bwd = denoms
+    return 0.5 * (masked_mean(torch.abs(a - af), mask_fwd, d_fwd)
+                  + masked_mean(torch.abs(ab - a), mask_bwd, d_bwd))

@@ -25,7 +25,17 @@ from .flax_init import init_like_flax_
 
 
 def _reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
-    return F.pad(x, (p, p, p, p), mode="reflect") if p else x
+    """F.pad(x, (p, p, p, p), mode="reflect") of NCHW x, one axis at a time.
+    CUDA's reflection-pad backward adds each padded gradient into its
+    source with atomics onto zeros.  Padding both axes at once sends up to
+    four into a source near a corner, whose sum then depends on their
+    order (run-to-run differences in a training step); one axis at a time
+    sends at most two (where that side is at least 2p + 2), and
+    0 + a + b is the same float in either order."""
+    if not p:
+        return x
+    return F.pad(F.pad(x, (p, p, 0, 0), mode="reflect"), (0, 0, p, p),
+                 mode="reflect")
 
 
 class ConvLayer(nn.Module):

@@ -194,27 +194,35 @@ class _ClipSource:
 
 
 def _run(step_fn, total_steps: int, per_call: int, name: str,
-         log_callback: Optional[LogCallback]) -> List[Dict]:
+         log_callback: Optional[LogCallback], dtype: str) -> List[Dict]:
     """`total_steps` calls of step_fn(step) in chunks of `per_call`; each
-    chunk's mean losses are read back once and must be finite."""
+    chunk's mean losses are read back once and must be finite.  In f32,
+    cuDNN takes deterministic algorithms here: its choices otherwise made
+    two runs of one seed differ (its bf16 ones do not)."""
     logs = []
     done = 0
-    while done < total_steps:
-        n = min(per_call, total_steps - done)
-        sums = None
-        for i in range(n):
-            aux = step_fn(done + i)
-            sums = aux if sums is None else {k: sums[k] + v
-                                             for k, v in aux.items()}
-        done += n
-        means = (torch.stack(list(sums.values())) / n).tolist()
-        rec = dict(zip(sums.keys(), means))
-        if not all(np.isfinite(v) for v in means):
-            raise FloatingPointError(
-                f"non-finite {name} loss at step {done}: {rec}")
-        logs.append({"step": done, **rec})
-        if log_callback is not None:
-            log_callback(name, done, rec)
+    cudnn = torch.backends.cudnn
+    deterministic = cudnn.deterministic
+    cudnn.deterministic = deterministic or dtype == "float32"
+    try:
+        while done < total_steps:
+            n = min(per_call, total_steps - done)
+            sums = None
+            for i in range(n):
+                aux = step_fn(done + i)
+                sums = aux if sums is None else {k: sums[k] + v
+                                                 for k, v in aux.items()}
+            done += n
+            means = (torch.stack(list(sums.values())) / n).tolist()
+            rec = dict(zip(sums.keys(), means))
+            if not all(np.isfinite(v) for v in means):
+                raise FloatingPointError(
+                    f"non-finite {name} loss at step {done}: {rec}")
+            logs.append({"step": done, **rec})
+            if log_callback is not None:
+                log_callback(name, done, rec)
+    finally:
+        cudnn.deterministic = deterministic
     return logs
 
 
@@ -247,7 +255,7 @@ def train_filter(cfg: TrainConfig, seed: int,
         return _step(opt, sched(k), lambda: _filter_loss(unet, batch, cfg))
 
     logs = _run(step, cfg.filter_steps, cfg.steps_per_call, "filter",
-                log_callback)
+                log_callback, cfg.dtype)
     return unet, logs
 
 
@@ -274,7 +282,7 @@ def train_refiner(cfg: TrainConfig, seed: int, unet: UNet,
                      lambda: _refiner_loss(tnet, unet, batch, cfg))
 
     logs = _run(step, cfg.refine_steps, cfg.steps_per_call, "refiner",
-                log_callback)
+                log_callback, cfg.dtype)
     return tnet, logs
 
 

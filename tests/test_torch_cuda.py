@@ -733,3 +733,76 @@ def test_forward_at_tile_edges(name, cuda_device):
                 vv = v if V > 1 else None
                 for a, b in zip(views(stb, B, vv), views(stash, big, vv)):
                     assert torch.equal(a, b[:B]), where
+
+
+@pytest.mark.parametrize("p", [1, 3])
+def test_reflect_pad_backward_is_bit_reproducible_on_card(p, cuda_device):
+    """The refiner's reflection pad on the card (p = 1 and 3, its 3x3 and
+    7x7 convs): forward equal to F.pad's, backward the same on two calls
+    (CUDA's own two-axis reflection-pad backward adds up to four
+    gradients a source with atomics), within f32 rounding of F.pad's."""
+    import torch.nn.functional as F
+
+    from deflicker_torch.models.refine import _reflect_pad
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 32, 64, 64, generator=gen).to(cuda_device)
+    g = torch.randn(2, 32, 64 + 2 * p, 64 + 2 * p, generator=gen).to(cuda_device)
+    x.requires_grad_()
+    assert torch.equal(_reflect_pad(x, p), F.pad(x, (p, p, p, p), mode="reflect"))
+    a, b = (torch.autograd.grad((_reflect_pad(x, p) * g).sum(), x)[0]
+            for _ in range(2))
+    assert torch.equal(a, b)
+    want = torch.autograd.grad((F.pad(x, (p, p, p, p), mode="reflect")
+                                * g).sum(), x)[0]
+    torch.testing.assert_close(a, want, rtol=1e-6, atol=1e-5)
+
+
+def test_refiner_backward_is_bit_reproducible_on_card(cuda_device):
+    """The TransformNet's backward on the card as stage-2 training runs it
+    (bf16 autocast) gives the same gradients on two calls."""
+    from deflicker_torch.models.refine import transformnet_init
+
+    gen = torch.Generator().manual_seed(0)
+    net = transformnet_init(gen).to(cuda_device)
+    x = torch.rand(2, 12, 128, 128, generator=gen).to(cuda_device)
+    grads = []
+    for _ in range(2):
+        net.zero_grad()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            y = net(x)
+        (y.float() ** 2).sum().backward()
+        grads.append([p.grad.clone() for p in net.parameters()])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_stage2_repeats_bit_for_bit_on_card(dtype, cuda_device,
+                                                 tmp_path):
+    """Two `train_stage2` runs of one seed on the card, as `_run` sets up
+    its steps (cuDNN's deterministic algorithms in f32), give the same
+    chunk losses and the same weights to the bit."""
+    from deflicker_torch.train.stage2_trainer import TrainConfig, train_stage2
+    from deflicker_torch.utils.checkpoint import load_checkpoint
+
+    cfg = TrainConfig(height=64, width=64, filter_steps=10, refine_steps=10,
+                      steps_per_call=5, dtype=dtype, seed=3)
+    runs = []
+    for r in range(2):
+        out = tmp_path / f"run{r}"
+        paths = train_stage2(cfg, out, device=cuda_device)
+        runs.append(((out / "scalars.jsonl").read_text(),
+                     [load_checkpoint(p) for p in paths]))
+    assert runs[0][0] == runs[1][0]
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, (list, tuple)):
+            return [x for t in tree for x in leaves(t)]
+        return [tree]
+
+    flat = [leaves(ckpts) for _, ckpts in runs]
+    assert len(flat[0]) == len(flat[1]) > 0
+    for a, b in zip(*flat):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

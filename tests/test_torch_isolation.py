@@ -60,12 +60,15 @@ def test_importing_the_port_loads_no_jax():
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     """Called without a device on a machine with no CUDA, entry points raise
     instead of running on the CPU."""
+    import importlib
     from types import SimpleNamespace
 
     from deflicker_torch.atlas import render_from_texture
     from deflicker_torch.cli import batch
     from deflicker_torch.cli import convert_weights
-    from deflicker_torch.cli import main as cli_main
+    # the module: `deflicker_torch.cli.main` is the function, as in the JAX
+    # package's `cli/__init__.py`
+    cli_main = importlib.import_module("deflicker_torch.cli.main")
     from deflicker_torch.cli import preprocess_flow
     from deflicker_torch.cli.evaluate import compute_video_metrics
     from deflicker_torch.cli.pipeline import run_pipeline

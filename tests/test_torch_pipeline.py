@@ -115,21 +115,18 @@ def test_pipeline_takes_raft_when_its_checkpoint_exists(tiny_video_dir):
 
 
 def test_refuses_what_the_slice_does_not_port(tiny_video_dir):
-    """A long video now takes the chunked path (tests/test_torch_multifit.py);
-    what the port still refuses: spreading a batch over hosts (--dcn), and
-    resuming the chunked fit from a checkpoint that pickles classes other
-    than numpy's and the two optax Adam states (here raw JAX arrays; a JAX
-    group checkpoint written by the JAX package's save_checkpoint resumes,
-    tests/test_torch_resume_jax.py)."""
+    """A long video now takes the chunked path (tests/test_torch_multifit.py)
+    and a batch spreads over hosts with --dcn (tests/test_torch_dcn.py);
+    what the port still refuses: resuming the chunked fit from a checkpoint
+    that pickles classes other than numpy's and the two optax Adam states
+    (here raw JAX arrays; a JAX group checkpoint written by the JAX
+    package's save_checkpoint resumes, tests/test_torch_resume_jax.py)."""
     import pickle
 
-    from deflicker_torch.cli import batch
     from deflicker_torch.cli.pipeline import run_stage1
     from deflicker_torch.config import AtlasConfig, PipelineConfig
 
     tmp, frames = tiny_video_dir
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        batch.main(["--videos", "a.mp4", "--dcn"], device="cpu")
 
     import optax
 

@@ -210,6 +210,7 @@ def test_serve_main_stdin(clips, monkeypatch, capsys):
     captured = capsys.readouterr()
     out = [json.loads(line) for line in captured.out.splitlines()
            if line.startswith("{")]
-    assert out[0] == {"ok": True, "status": "ready", "device": "cpu"}
+    assert out[0] == {"ok": True, "status": "ready", "device": "cpu",
+                      "mesh": None}
     assert [r["ok"] for r in out[1:]] == [True, True]
     assert json.loads(captured.err.strip().splitlines()[-1])["jobs"] == 2
