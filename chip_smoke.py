@@ -26,9 +26,16 @@ Phases (any failure exits non-zero before the result line):
      .run_pipeline` on a procedural flickering clip of 80 frames at 432x768,
      at the default AtlasConfig widths and batch with the shipped stage-2
      weights; only `iters_num` is cut.  The launch counters are zeroed just
-     before and read just after, and the outputs are checked;
+     before and read just after, and the outputs are checked; every
+     pipeline phase prints its peak device memory, also by stage;
   4. profile: 40 more fit steps of the same clip, timed plain and then under
-     torch.profiler — device-busy time per step, idle share, top kernels;
+     torch.profiler — device-busy time per step, idle share, top kernels —
+     eager and captured as CUDA graphs (the pipeline runs captured), and a
+     sweep of the mapping's pretrain steps the same way; then
+     the captured fit against the eager one: configuration 1's pretrain
+     (10 sweeps) and 300 fit steps across global rigidity's stop, both ways
+     from one seed, bit-equal in params, Adam state, chunk logs and
+     generator states, with each way's it/s, graphs and peak memory;
   5. the pipeline with RAFT flow: a seeded random RAFT saved as a `.pth`
      with the reference's keys, found by `make_flow_provider`, on a fresh
      copy of the clip: 79 pairs in batches of 4 pairs x 2 directions, 20 GRU
@@ -49,7 +56,8 @@ Phases (any failure exits non-zero before the result line):
      run reaches execute; loss terms, metrics, textures and alpha maps are
      checked, and alpha must have begun to follow the mask;
   8. profile of the dual fit step, with the stash pair and with the remat
-     pair, same seeds;
+     pair, same seeds, in the order stash, remat, remat, stash, each eager
+     and captured;
   9. the two other correlation bodies at the flow engine's shape (8 x 54 x
      96, D = 256, four levels) and flows of +-0.5, +-3 and +-40 px: one
      tensor-core kernel over 8 x 8 pixel tiles, the shared body (each tile's
@@ -65,7 +73,8 @@ Phases (any failure exits non-zero before the result line):
      `maximum_number_of_frames` 80 (3 chunks of 57, the last anchored back
      one frame), RAFT flow with DEFLICKER_CORR_RESIDENT=1, one V = 3 fit of
      the three chunks at the default widths and batch, every frame rendered,
-     stage 2 over all 170 frames; then 40 profiled steps of that group fit;
+     stage 2 over all 170 frames; then 40 profiled steps of that group fit,
+     eager and captured;
  12. the batch CLI's group mode (`cli.batch --parallel_fit`) on two 80-frame
      clips: RAFT flow with DEFLICKER_CORR_SHARED=1, one V = 2 fit with
      DEFLICKER_IMLP_STASH=1, stage 2 through `FilterEngine.run_multi`;
@@ -75,7 +84,9 @@ Phases (any failure exits non-zero before the result line):
      through `cli.serve.serve_lines`: two 40-frame clips, the first again
      with another seed (traced by DEFLICKER_PROFILE), and a line with an
      unknown key; weights load once, no kernel library is built or loaded
-     after the first job, and every job's launches are counted; then
+     after the first job, no CUDA graph is captured after it (the fit's
+     graphs are kept by shape), and every job's launches are counted; the
+     memory the kept states hold is freed when they are dropped; then
      `cli.evaluate.main` and `cli.stage2.main` on the second clip;
  14. stage-2 training: `cli.train_stage2.main` at the published widths and
      the JAX CLI's defaults (UNet 32 features, TransformNet nf 32 with 5
@@ -118,7 +129,9 @@ queued behind a sleep kernel, so no host work is inside the events);
 `call_ms` beside a kernel's is one call from an idle device, the wrapper's
 host work included, as earlier versions of this script timed every kernel.
 Each pipeline phase zeroes the launch counters just before it and reads
-them just after.  The second-to-last line is the kernel table as JSON, the
+them just after.  The fits and pretrains of every phase run as CUDA graphs
+(deflicker_torch/atlas/graphs.py) except the sample-sharded fits of phase
+15, and a replayed step counts its launches as an eager one does.  The second-to-last line is the kernel table as JSON, the
 last line {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
 device.
 """
@@ -159,6 +172,8 @@ TOL_CORR_REL = 1e-4         # relative Frobenius
 TOL_CORR_ABS = 1e-3         # max abs, as a share of max |plain|
 
 ITERS = 500                 # fit steps (the default config runs 10,001)
+ITERS_GRAPH = 300           # fit steps of the captured-against-eager phase
+PRETRAIN_GRAPH = 10         # pretrain sweeps there (default 100)
 ITERS_RAFT_RUN = 100        # fit steps of the second pipeline run (RAFT flow)
 ITERS_DUAL = 300            # fit steps of the dual-atlas run
 PRETRAIN_DUAL = 50          # pretrain sweeps per mapping of the dual run (default 100)
@@ -803,6 +818,57 @@ def read_counters() -> dict:
     return {**imlp_kernel.launches, **corr_kernel.launches}
 
 
+@contextlib.contextmanager
+def stage_peaks(device):
+    """Peak device memory by stage of a pipeline run: the flow, the
+    pretrains, the fit (a group's pretrain and fit together), the renders
+    and stage 2 (a render inside the fit counts for both); yields a dict
+    that also gets "all", the run's peak."""
+    import torch
+
+    import deflicker_torch.atlas.multifit as multifit
+    import deflicker_torch.cli.pipeline as pipeline
+
+    stages = {"flow": (pipeline, "preprocess_optical_flow"),
+              "pretrain": (pipeline, "pretrain_mapping"),
+              "fit": (pipeline, "fit_atlas"),
+              "group_fit": (multifit, "fit_group"),
+              "render": (pipeline, "evaluate_and_save"),
+              "group_render": (multifit, "save_group"),
+              "stage2": (pipeline, "run_stage2")}
+    peaks = {"all": 0}
+    active = ["all"]            # the stages running, outermost first
+
+    def credit() -> None:
+        """The peak since the last reset, to every running stage."""
+        torch.cuda.synchronize(device)
+        p = torch.cuda.max_memory_allocated(device)
+        for name in active:
+            peaks[name] = max(peaks.get(name, 0), p)
+        torch.cuda.reset_peak_memory_stats(device)
+
+    def wrap(name, fn):
+        def wrapper(*args, **kwargs):
+            credit()
+            active.append(name)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                credit()
+                active.pop()
+        return wrapper
+
+    saved = {name: getattr(m, a) for name, (m, a) in stages.items()}
+    for name, (m, a) in stages.items():
+        setattr(m, a, wrap(name, saved[name]))
+    try:
+        yield peaks
+    finally:
+        for name, (m, a) in stages.items():
+            setattr(m, a, saved[name])
+        credit()
+
+
 def run_pipeline_checked(device, tag: str, frames: Path, results: Path,
                          ckpt_raft: Path, iters: int, psnr_floor,
                          class_name=None, overrides=None, n_frames=CLIP[0],
@@ -841,9 +907,10 @@ def run_pipeline_checked(device, tag: str, frames: Path, results: Path,
 
     torch.cuda.reset_peak_memory_stats(device)
     reset_counters()
-    out = run_pipeline(cfg, atlas_cfg, device=device)
+    with stage_peaks(device) as peaks:
+        out = run_pipeline(cfg, atlas_cfg, device=device)
     launches = read_counters()
-    peak = torch.cuda.max_memory_allocated(device)
+    peak = peaks.pop("all")
 
     pair = pair or (("fwd_stash", "bwd_stash") if class_name else ("fwd", "bwd"))
     calls = (4 if class_name else 2) * iters       # networks x fit steps
@@ -874,6 +941,7 @@ def run_pipeline_checked(device, tag: str, frames: Path, results: Path,
                                    "t_stage2", "t_total", "chunks")
                if k in out}
     summary.update(launches=launches, peak_mem_gib=peak / 2 ** 30,
+                   stage_peak_gib={k: v / 2 ** 30 for k, v in peaks.items()},
                    iterations=iters)
     print(f"[{tag}] " + json.dumps(summary), flush=True)
     return out, launches, atlas_cfg
@@ -1032,16 +1100,53 @@ def phase_dual_pipeline(device):
     return launches, frames, atlas_cfg
 
 
-def phase_dual_profile(device, frames: Path, atlas_cfg, steps: int = 20) -> None:
-    """Where a dual fit step's time goes, with the stash pair and with the
-    remat pair: the same data, init and sample seeds for both; `steps` steps
-    timed plain, then under torch.profiler; peak device memory of each."""
+def profile_fit(device, tag: str, fit, steps: int) -> dict:
+    """Where a fit step's time goes, eager and captured side by side:
+    `fit(n, graphs)` runs n more steps of one fit (5 to warm up, `steps`
+    timed plain, `steps` under torch.profiler).  The captured runs share one
+    kept `FitGraphs`, so their timed and profiled windows only replay; each
+    run's launches and peak device memory are printed.  Returns each
+    mode's plain wall seconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from deflicker_torch.atlas.graphs import FitGraphs
+
+    walls = {}
+    for mode in ("eager", "captured"):
+        graphs = FitGraphs(keep=True, eager=mode == "eager")
+        fit(5, graphs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counters()
+        t0 = time.time()
+        fit(steps, graphs)
+        torch.cuda.synchronize()
+        wall_plain = time.time() - t0
+        peak = torch.cuda.max_memory_allocated(device)
+        launches = {k: v for k, v in read_counters().items() if v}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            fit(steps, graphs)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        print(f"[{tag}-{mode}] launches {launches}, peak memory "
+              f"{peak / 2 ** 30:.3f} GiB", flush=True)
+        report_profile(f"{tag}-{mode}", "step", steps, wall_plain, wall, prof)
+        walls[mode] = wall_plain
+    return walls
+
+
+def phase_dual_profile(device, frames: Path, atlas_cfg, steps: int = 20) -> None:
+    """Where a dual fit step's time goes, with the stash pair and with the
+    remat pair, each eager and captured (`profile_fit`): the same data,
+    init and sample seeds for all, in the order stash, remat, remat, stash
+    so that run order does not decide between them."""
+    import torch
+
     from deflicker_torch.atlas import (build_specs, fit_atlas, init_models,
                                        load_video_data)
-    from deflicker_torch.ops.cuda import imlp_kernel
 
     T, H, W = CLIP
     data = load_video_data(frames, H, W, atlas_cfg.maximum_number_of_frames,
@@ -1054,25 +1159,9 @@ def phase_dual_profile(device, frames: Path, atlas_cfg, steps: int = 20) -> None
         with env(DEFLICKER_IMLP_STASH="1" if mode == "stash" else "0"):
             params = init_models(specs, torch.Generator().manual_seed(0), device)
             gen = torch.Generator(device=device).manual_seed(0)
-            fit_atlas(params, specs, data, dataclasses.replace(cfg, iters_num=5), gen)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(device)
-            imlp_kernel.reset_launches()
-            t0 = time.time()
-            fit_atlas(params, specs, data, cfg, gen)
-            torch.cuda.synchronize()
-            wall_plain = time.time() - t0
-            peak = torch.cuda.max_memory_allocated(device)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.time()
-                fit_atlas(params, specs, data, cfg, gen)
-                torch.cuda.synchronize()
-                wall = time.time() - t0
-            print(f"[dual-profile-{mode}] launches {dict(imlp_kernel.launches)}, "
-                  f"peak memory {peak / 2 ** 30:.3f} GiB", flush=True)
-            report_profile(f"dual-profile-{mode}", "step", steps, wall_plain,
-                           wall, prof)
+            profile_fit(device, f"dual-profile-{mode}", lambda n, g: fit_atlas(
+                params, specs, data, dataclasses.replace(cfg, iters_num=n), gen,
+                graphs=g), steps)
 
 
 def phase_corr_bodies(device) -> dict:
@@ -1323,10 +1412,9 @@ def phase_chunked(device):
 
 
 def phase_multi_profile(device, frames: Path, atlas_cfg, steps: int = 40) -> None:
-    """Where a V = 3 group step's time goes: the three chunks of the
-    chunked phase, `steps` steps timed plain, then under torch.profiler."""
+    """Where a V = 3 group step's time goes, eager and captured: the three
+    chunks of the chunked phase (`profile_fit`)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from deflicker_torch.atlas import build_specs, load_video_data
     from deflicker_torch.atlas.multifit import (fit_atlas_multi,
@@ -1344,20 +1432,12 @@ def phase_multi_profile(device, frames: Path, atlas_cfg, steps: int = 40) -> Non
     params = init_models_multi(specs, torch.Generator().manual_seed(0),
                                len(starts), device)
     gen = torch.Generator(device=device).manual_seed(0)
-    fit_atlas_multi(params, specs, data_v, dataclasses.replace(cfg, iters_num=5), gen)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    fit_atlas_multi(params, specs, data_v, cfg, gen)
-    torch.cuda.synchronize()
-    wall_plain = time.time() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        fit_atlas_multi(params, specs, data_v, cfg, gen)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    report_profile("multi-profile", "step", steps, wall_plain, wall, prof)
-    print(f"[multi-profile] {len(starts)} videos: "
-          f"{len(starts) * steps / wall_plain:.2f} video-steps/s", flush=True)
+    walls = profile_fit(device, "multi-profile", lambda n, g: fit_atlas_multi(
+        params, specs, data_v, dataclasses.replace(cfg, iters_num=n), gen,
+        graphs=g), steps)
+    for mode, wall in walls.items():
+        print(f"[multi-profile-{mode}] {len(starts)} videos: "
+              f"{len(starts) * steps / wall:.2f} video-steps/s", flush=True)
 
 
 def phase_batch(device):
@@ -1505,12 +1585,13 @@ def phase_serve(device) -> dict:
         process = d.process
 
         def process_counted(**job):
-            before = read_counters()
+            before, graphs = read_counters(), d.fit_graphs.captured
             out = process(**job)
             torch.cuda.synchronize(device)
             after = read_counters()
             jobs.append({"launches": {k: after[k] - before[k] for k in after
                                       if after[k] != before[k]},
+                         "graphs_captured": d.fit_graphs.captured - graphs,
                          "loads": dict(loads),
                          "libraries": dict(build._loaded)})
             return out
@@ -1563,6 +1644,11 @@ def phase_serve(device) -> dict:
                  {"fwd": per, "bwd": per}]
     if [j["launches"] for j in jobs] != want_jobs:
         raise AssertionError(f"per-job launches {[j['launches'] for j in jobs]}")
+    # job 1 captures the pretrain's step and the fit's (one loss phase: global
+    # rigidity stops after the cut run); jobs 2 and 3, of its shape, none
+    if [j["graphs_captured"] for j in jobs] != [2, 0, 0]:
+        raise AssertionError("graphs captured per job "
+                             f"{[j['graphs_captured'] for j in jobs]}, want [2, 0, 0]")
     want = {"fwd": 3 * per, "bwd": 3 * per, "lookup": 2 * RAFT_ITERS * solves}
     if {k: v for k, v in launches.items() if v} != want:
         raise AssertionError(f"launches {launches}, want {want}")
@@ -1576,9 +1662,36 @@ def phase_serve(device) -> dict:
     for k, (r, j) in enumerate(zip(res, jobs)):
         print(f"[serve] job {k + 1}" + (" (cold)" if k == 0 else " (warm)")
               + (" profiled" if k == 2 else "") + " "
-              + json.dumps({**{x: r[x] for x in keys}, "launches": j["launches"]}),
+              + json.dumps({**{x: r[x] for x in keys}, "launches": j["launches"],
+                            "graphs_captured": j["graphs_captured"]}),
               flush=True)
     print(f"[serve] error line: {res[3]['error']!r}", flush=True)
+
+    # what the Deflickerer's kept states hold on the card: freed, with the
+    # garbage collector off, when its graphs are dropped
+    import gc
+
+    from deflicker_torch.atlas.graphs import FitGraphs
+
+    n_states = len(d.fit_graphs.states)
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(device), torch.cuda.memory_reserved(device)
+    gc.disable()
+    try:
+        d.fit_graphs = FitGraphs(keep=True)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        left = (torch.cuda.memory_allocated(device),
+                torch.cuda.memory_reserved(device))
+    finally:
+        gc.enable()
+    kept_gib = [(h - l) / 2 ** 30 for h, l in zip(held, left)]
+    print(f"[serve] {n_states} kept states hold {kept_gib[0]:.4f} GiB allocated, "
+          f"{kept_gib[1]:.4f} GiB reserved", flush=True)
+    if n_states != 2 or kept_gib[0] <= 0:
+        raise AssertionError(f"{n_states} kept states freed {kept_gib} GiB "
+                             "when dropped, want 2 states and memory freed")
 
     # the stage CLIs on clip B, whose results no later job rewrote
     out = io.StringIO()
@@ -1602,7 +1715,8 @@ def phase_serve(device) -> dict:
         "loads": last["loads"], "launches": launches, "solves_per_job": solves,
         "trace_mb": sum(t.stat().st_size for t in traces) / 2 ** 20,
         "evaluate_psnr_mean": m["psnr_mean"], "evaluate_ewarp_mean":
-        m.get("ewarp_mean"), "stage2_cli_s": t_stage2_cli}
+        m.get("ewarp_mean"), "stage2_cli_s": t_stage2_cli,
+        "kept_states": n_states, "kept_states_gib": kept_gib}
     print("[serve] " + json.dumps(summary), flush=True)
     return launches
 
@@ -2131,14 +2245,14 @@ def device_events(prof):
 
 
 def phase_profile(device, frames: Path, atlas_cfg, steps: int = 40) -> None:
-    """Where a fit step's time goes: `steps` more steps of the same fit under
-    torch.profiler; device-busy time (sum of kernel times) against the
-    step's wall time gives the device's idle share."""
+    """Where a fit step's time goes, eager and captured (`profile_fit`):
+    device-busy time (sum of kernel times) against the step's wall time
+    gives the device's idle share; then the same for a pretrain step (one
+    sweep of the frames timed, one profiled)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from deflicker_torch.atlas import (build_specs, fit_atlas, init_models,
-                                       load_video_data)
+                                       load_video_data, pretrain_mapping)
 
     T, H, W = CLIP[0], CLIP[1] // 4, CLIP[2] // 4
     # pack once: fit_atlas reuses a pack already on the device
@@ -2149,18 +2263,96 @@ def phase_profile(device, frames: Path, atlas_cfg, steps: int = 40) -> None:
     specs = build_specs(cfg)
     params = init_models(specs, torch.Generator().manual_seed(0), device)
     gen = torch.Generator(device=device).manual_seed(0)
-    fit_atlas(params, specs, data, dataclasses.replace(cfg, iters_num=5), gen)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    fit_atlas(params, specs, data, cfg, gen)
-    torch.cuda.synchronize()
-    wall_plain = time.time() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        fit_atlas(params, specs, data, cfg, gen)
+    profile_fit(device, "profile", lambda n, g: fit_atlas(
+        params, specs, data, dataclasses.replace(cfg, iters_num=n), gen,
+        graphs=g), steps)
+    # the mapping's pretrain step, a sweep over the frames at a time
+    g_pre = torch.Generator(device=device).manual_seed(1)
+    profile_fit(device, "pretrain-profile", lambda n, g: pretrain_mapping(
+        params["mapping1"], specs.mapping1, g_pre, T, H, W,
+        cfg.uv_mapping_scale, max(1, n // T), graphs=g), T)
+
+
+def phase_fit_graphs(device, frames: Path, atlas_cfg) -> dict:
+    """Configuration 1's fit (the pipeline phase's clip at 108x192, default
+    widths and batch) captured against eager from one seed: the mapping's
+    pretrain (`PRETRAIN_GRAPH` sweeps) and `ITERS_GRAPH` fit steps across
+    global rigidity's stop, each run both ways from the same init.  Params,
+    Adam state, chunk logs and both generators' states must be bit-equal,
+    the chain counters 2 x steps both ways; prints the times, it/s, graphs
+    captured and peak device memory of each."""
+    import torch
+
+    from deflicker_torch.atlas import (build_specs, fit_atlas, init_models,
+                                       load_video_data, pretrain_mapping)
+    from deflicker_torch.atlas.engine import flat_params
+    from deflicker_torch.atlas.graphs import FitGraphs
+
+    T, H, W = CLIP[0], CLIP[1] // 4, CLIP[2] // 4
+    data = load_video_data(frames, H, W, atlas_cfg.maximum_number_of_frames
+                           ).with_packed(device)
+    cfg = dataclasses.replace(atlas_cfg, iters_num=ITERS_GRAPH,
+                              evaluate_every=ITERS_GRAPH - 1,
+                              stop_global_rigidity=ITERS_GRAPH // 2)
+    specs = build_specs(cfg)
+    init = init_models(specs, torch.Generator().manual_seed(0), device)
+    print(f"[fit-graphs] configuration 1 at {H}x{W}, {T} frames: pretrain "
+          f"{PRETRAIN_GRAPH} sweeps and {ITERS_GRAPH} fit steps (global "
+          f"rigidity until {cfg.stop_global_rigidity}), eager then captured "
+          "from one seed", flush=True)
+    runs = {}
+    for mode in ("eager", "captured"):
+        eager = mode == "eager"
+        pre_graphs, fit_graphs = FitGraphs(eager=eager), FitGraphs(eager=eager)
+        params = {k: [{kk: t.detach().clone().requires_grad_()
+                       for kk, t in layer.items()} for layer in v]
+                  for k, v in init.items()}
+        g_pre = torch.Generator(device=device).manual_seed(1)
+        g_fit = torch.Generator(device=device).manual_seed(2)
         torch.cuda.synchronize()
-        wall = time.time() - t0
-    report_profile("profile", "step", steps, wall_plain, wall, prof)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.time()
+        pretrain_mapping(params["mapping1"], specs.mapping1, g_pre, T, H, W,
+                         cfg.uv_mapping_scale, PRETRAIN_GRAPH,
+                         graphs=pre_graphs)
+        torch.cuda.synchronize()
+        t_pretrain = time.time() - t0
+        reset_counters()
+        t0 = time.time()
+        res = fit_atlas(params, specs, data, cfg, g_fit, graphs=fit_graphs)
+        torch.cuda.synchronize()
+        t_fit = time.time() - t0
+        launches = read_counters()
+        if launches["fwd"] != 2 * ITERS_GRAPH or launches["bwd"] != 2 * ITERS_GRAPH:
+            raise AssertionError(f"{mode} fit launched {launches}")
+        runs[mode] = {
+            "params": [q.detach().clone() for q in flat_params(params)],
+            "opt": res.opt_state, "logs": res.logs,
+            "gens": (g_pre.get_state(), g_fit.get_state()),
+            "t_pretrain": t_pretrain,
+            "pretrain_steps_per_sec": PRETRAIN_GRAPH * T / t_pretrain,
+            "t_fit": t_fit, "iters_per_sec": ITERS_GRAPH / t_fit,
+            "graphs_captured": pre_graphs.captured + fit_graphs.captured,
+            "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30}
+    a, b = runs["eager"], runs["captured"]
+    same = (all(torch.equal(x, y) for x, y in zip(a["params"], b["params"]))
+            and a["logs"] == b["logs"]
+            and a["opt"]["step"] == b["opt"]["step"] == ITERS_GRAPH
+            and all(np.array_equal(x, y) for k in ("exp_avg", "exp_avg_sq")
+                    for x, y in zip(a["opt"][k], b["opt"][k]))
+            and all(torch.equal(x, y) for x, y in zip(a["gens"], b["gens"])))
+    if not same:
+        raise AssertionError("the captured fit differs from the eager fit")
+    if (a["graphs_captured"], b["graphs_captured"]) != (0, 3):
+        raise AssertionError("graphs captured eager / captured: "
+                             f"{a['graphs_captured']} / {b['graphs_captured']}, "
+                             "want 0 / 3 (the pretrain's, two fit phases)")
+    keys = ("t_pretrain", "pretrain_steps_per_sec", "t_fit", "iters_per_sec",
+            "graphs_captured", "peak_mem_gib")
+    out = {"bit_equal": same, "chunks": len(a["logs"]),
+           **{mode: {k: r[k] for k in keys} for mode, r in runs.items()}}
+    print("[fit-graphs] " + json.dumps(out), flush=True)
+    return out
 
 
 def report_profile(tag: str, unit: str, n: int, wall_plain: float, wall: float,
@@ -2247,6 +2439,9 @@ def main() -> int:
     launches, frames, atlas_cfg = phase_pipeline(device)
     print(f"[pipeline] wall {time.time() - t1:.1f} s", flush=True)
     phase_profile(device, frames, atlas_cfg)
+    t1 = time.time()
+    phase_fit_graphs(device, frames, atlas_cfg)
+    print(f"[fit-graphs] wall {time.time() - t1:.1f} s", flush=True)
     t1 = time.time()
     raft_launches = phase_raft_pipeline(device, frames)
     print(f"[raft-pipeline] wall {time.time() - t1:.1f} s", flush=True)

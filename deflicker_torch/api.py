@@ -10,8 +10,11 @@ card.
 What stays warm across jobs: the RAFT and stage-2 weights, on the device
 once (`flow_provider`, `filter_engine`, each made at its first use); the two
 CUDA libraries, built and loaded once a process (`ops/cuda/build.load`);
-and the frames and flow of a clip already under `<root>/<stem>/`, which are
-neither decoded nor solved again.
+the stage-1 fit's CUDA graphs (`fit_graphs`, atlas/graphs.py: the
+pretrains' and each loss phase's fit step, kept by the fit's shape, so a
+later job of a shape already seen copies its pack and init params in and
+captures nothing); and the frames and flow of a clip already under
+`<root>/<stem>/`, which are neither decoded nor solved again.
 
 `mesh="auto"` (the default) picks up an initialised `torch.distributed`
 world of several ranks (`torchrun`, parallel/mesh.py): every rank then
@@ -70,6 +73,9 @@ class Deflickerer:
                           else AtlasConfig())
         self._flow_provider = None
         self._filter_engine = None
+        from .atlas.graphs import FitGraphs
+
+        self.fit_graphs = FitGraphs(keep=True)
 
     # -- lazy, load-once network state -------------------------------------
     @property
@@ -129,4 +135,5 @@ class Deflickerer:
             atlas_cfg = dataclasses.replace(atlas_cfg, **overrides)
         return run_pipeline(cfg, atlas_cfg, device=self.device,
                             flow_provider=self.flow_provider,
-                            filter_engine=self.filter_engine, mesh=self.mesh)
+                            filter_engine=self.filter_engine, mesh=self.mesh,
+                            graphs=self.fit_graphs)

@@ -50,6 +50,7 @@ from ..ops.coords import normalize_xyt
 from ..parallel.mesh import (Mesh, all_reduce_sum, block, is_main, replicated,
                              shard_constraint)
 from .data import VideoData
+from .graphs import CapturedStep, FitGraphs
 
 Params = Dict[str, list]
 
@@ -312,8 +313,17 @@ def make_loss_fn(specs: AtlasSpecs, cfg: AtlasConfig, data: VideoData,
 
 
 def _adam(tensors, lr: float) -> torch.optim.Adam:
-    """Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8)."""
-    return torch.optim.Adam(tensors, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    """Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8).  On the card
+    the fused implementation with `capturable=True`: its step count lives
+    on the device, so a captured step can replay it, and one multi-tensor
+    kernel updates every leaf where the foreach implementation launches a
+    dozen a step.  Every fit on the card, captured or not, runs this one
+    optimizer, so the captured and the eager fit can be bit-equal.  On the
+    CPU the default (`capturable=True` raises for CPU tensors)."""
+    tensors = list(tensors)
+    card = dict(fused=True, capturable=True) if tensors[0].is_cuda else {}
+    return torch.optim.Adam(tensors, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            **card)
 
 
 def make_optimizer(params: Params, lr: float) -> torch.optim.Adam:
@@ -322,27 +332,47 @@ def make_optimizer(params: Params, lr: float) -> torch.optim.Adam:
 
 def adam_state_to_host(opt: torch.optim.Adam, params: Params) -> dict:
     """The optimizer state as plain numpy (step, first and second moments in
-    flat_params order) — what the port's checkpoints hold."""
+    flat_params order) — what the port's checkpoints hold.  The step count
+    may live on the device (the card's capturable Adam)."""
     flat = flat_params(params)
     st = [opt.state.get(p, {}) for p in flat]
     if not st or "step" not in st[0]:
         return {"step": 0, "exp_avg": None, "exp_avg_sq": None}
-    return {"step": int(st[0]["step"]),
+    return {"step": int(st[0]["step"].item()),
             "exp_avg": [s["exp_avg"].detach().cpu().clone().numpy() for s in st],
             "exp_avg_sq": [s["exp_avg_sq"].detach().cpu().clone().numpy()
                            for s in st]}
 
 
 def adam_state_from_host(opt: torch.optim.Adam, params: Params,
-                         state: dict) -> None:
+                         state: Optional[dict]) -> None:
+    """Load a host Adam state (`adam_state_to_host`'s form) into `opt`.  A
+    state the optimizer already holds is written in place (a captured step
+    reads its addresses); an empty `state` zeroes it, which is Adam before
+    its first step.  The step count goes where the optimizer keeps it: on
+    the param's device for the card's capturable Adam, on the host
+    otherwise."""
+    flat = flat_params(params)
     if not state or not state.get("step"):
+        for p in flat:
+            for t in opt.state.get(p, {}).values():
+                t.zero_()
         return
-    for p, m, v in zip(flat_params(params), state["exp_avg"],
-                       state["exp_avg_sq"]):
-        opt.state[p] = {
-            "step": torch.tensor(float(state["step"])),
-            "exp_avg": torch.as_tensor(m).to(p.device).clone(),
-            "exp_avg_sq": torch.as_tensor(v).to(p.device).clone()}
+    on_device = opt.param_groups[0]["capturable"]
+    with torch.no_grad():
+        for p, m, v in zip(flat, state["exp_avg"], state["exp_avg_sq"]):
+            m, v = torch.as_tensor(m), torch.as_tensor(v)
+            s = opt.state.get(p)
+            if s:
+                s["step"].fill_(float(state["step"]))
+                s["exp_avg"].copy_(m)
+                s["exp_avg_sq"].copy_(v)
+                continue
+            opt.state[p] = {
+                "step": torch.tensor(float(state["step"]),
+                                     device=p.device if on_device else "cpu"),
+                "exp_avg": m.to(p.device).clone(),
+                "exp_avg_sq": v.to(p.device).clone()}
 
 
 @dataclasses.dataclass
@@ -353,15 +383,126 @@ class FitResult:
     logs: List[Dict[str, float]]
 
 
+# AtlasConfig fields that set a fit's schedule and never what one step
+# computes: fits that differ only in these replay the same graphs
+SCHEDULE_FIELDS = ("results_folder_name", "maximum_number_of_frames", "resx",
+                   "resy", "iters_num", "evaluate_every",
+                   "stop_bootstrapping_iteration", "pretrain_mapping1",
+                   "pretrain_mapping2", "pretrain_iter_number",
+                   "load_checkpoint", "checkpoint_path", "stop_global_rigidity",
+                   "add_to_experiment_folder_name", "steps_per_call", "seed",
+                   "save_diagnostics")
+
+
+def step_config(cfg: AtlasConfig) -> AtlasConfig:
+    """`cfg` with its schedule fields at their defaults: what a captured
+    fit step depends on, a key of `FitGraphs`."""
+    default = AtlasConfig()
+    return dataclasses.replace(cfg, **{k: getattr(default, k)
+                                       for k in SCHEDULE_FIELDS})
+
+
+def make_fit_step(loss_fn: Callable, params: Params,
+                  optimizer: torch.optim.Adam, packed: torch.Tensor,
+                  generator: torch.Generator, shape: tuple,
+                  lo: int = 0, hi: Optional[int] = None,
+                  mesh: Optional[Mesh] = None) -> Callable:
+    """One fit step over fixed tensors, the counterpart of the JAX
+    package's `make_scan_step`: draw (j, i, f) of `shape` from `generator`
+    (keep samples, or videos, [lo:hi]), run the loss, its backward and
+    Adam, and add every loss term into the chunk sums in place: the dict
+    `step.sums` holds "keys", the terms in order, and "vals", their sums
+    one row each (made at the first step, zeroed by the caller at each
+    chunk's start).  With `mesh` (the sample-sharded fit) the terms are
+    this block's shares of the whole batch's loss and the gradients are
+    summed over the ranks; that step cannot be captured."""
+    device = packed.device
+    T, H, W = packed.shape[-4:-1]
+    flat = flat_params(params)
+    sums: Dict[str, object] = {}
+
+    def step():
+        j = torch.randint(0, W, shape, generator=generator, device=device)
+        ii = torch.randint(0, H, shape, generator=generator, device=device)
+        f = torch.randint(0, T, shape, generator=generator, device=device)
+        norm = None
+        if mesh is not None:
+            # the whole batch's size and flow-mask counts (data, so no
+            # collective): this block's terms are shares of its loss
+            counts = packed[f, ii, j, 13:15].sum(0)
+            norm = (shape[0], counts[0], counts[1])
+        total, aux = loss_fn(params, packed, j[lo:hi], ii[lo:hi], f[lo:hi],
+                             norm)
+        if not sums:
+            sums["keys"] = sorted(aux)
+            sums["vals"] = torch.zeros((len(aux),) + total.shape,
+                                       device=device)
+        vals = torch.stack([aux[k].detach() for k in sums["keys"]])
+        optimizer.zero_grad(set_to_none=True)
+        total.sum().backward()
+        if mesh is not None:
+            all_reduce_sum([p.grad for p in flat], mesh)
+        optimizer.step()
+        sums["vals"].add_(vals)
+
+    step.sums = sums
+    return step
+
+
+def pretrain_samples(generator: torch.Generator, n_videos: Optional[int],
+                     batch: int, H: int, W: int, device):
+    """One pretrain step's pixel rows i, then columns j, each (batch,), or
+    (V, batch) for `n_videos` V."""
+    shape = (batch,) if n_videos is None else (n_videos, batch)
+    i = torch.randint(0, H, shape, generator=generator, device=device)
+    j = torch.randint(0, W, shape, generator=generator, device=device)
+    return i, j
+
+
+def make_pretrain_step(params: list, spec: IMLPSpec,
+                       optimizer: torch.optim.Adam,
+                       generator: torch.Generator, frame: torch.Tensor,
+                       num_frames: int, H: int, W: int,
+                       uv_mapping_scale: float, batch: int,
+                       n_videos: Optional[int] = None, lo: int = 0,
+                       hi: Optional[int] = None) -> Callable:
+    """One pretrain step over fixed tensors, a step of the JAX package's
+    scanned `pretrain_mapping`: `batch` random pixels (`pretrain_samples`)
+    of frame `frame` (a device counter the step advances modulo
+    `num_frames`, so the frames come in `tile(arange(T), iters)` order),
+    Adam on ||xy * scale - uv||.  `n_videos`: the draws are (V, batch), the
+    mappings videos [lo:hi] of them, and the videos' mean losses sum into
+    one backward."""
+    L = max(H, W)
+    device = frame.device
+
+    def step():
+        i, j = pretrain_samples(generator, n_videos, batch, H, W, device)
+        if n_videos is not None:
+            i, j = i[lo:hi], j[lo:hi]
+        xyt = normalize_xyt(j, i, frame.expand(i.shape), L, num_frames)
+        uv = imlp_apply(params, xyt, spec)
+        err = safe_norm(xyt[..., :2] * uv_mapping_scale - uv)
+        loss = (torch.mean(err) if n_videos is None
+                else torch.mean(err, dim=-1).sum())
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        frame.add_(1).remainder_(num_frames)
+
+    return step
+
+
 def run_fit_schedule(params: Params, specs: AtlasSpecs, data: VideoData,
                      packed: torch.Tensor, cfg: AtlasConfig,
                      generator: torch.Generator, n_videos: Optional[int],
                      start_iteration: int, opt_state: Optional[dict],
                      on_log: Callable[[int, List[Dict[str, float]]], None],
-                     on_eval: Callable[[int, torch.optim.Adam], None],
-                     rescue_state: Callable[[torch.optim.Adam], dict],
-                     rescue_path: str, mesh: Optional[Mesh] = None
-                     ) -> Tuple[torch.optim.Adam, int]:
+                     on_eval: Callable[[int, dict], None],
+                     rescue_state: Callable[[dict], dict],
+                     rescue_path: str, mesh: Optional[Mesh] = None,
+                     graphs: Optional[FitGraphs] = None
+                     ) -> Tuple[dict, int]:
     """The fit loop of the single fit (`n_videos` None: params and samples
     carry no video axis) and of the multi-video fit (samples (V, B), one
     loss per video, their sum into one backward), from `start_iteration` to
@@ -370,39 +511,55 @@ def run_fit_schedule(params: Params, specs: AtlasSpecs, data: VideoData,
     Steps run in chunks; a chunk ends at `steps_per_call`, at the next
     schedule boundary (global rigidity until `stop_global_rigidity`, alpha
     bootstrapping until `stop_bootstrapping_iteration`), after the next eval
-    point, or at the fit's end, as in the JAX package.  After each chunk
-    (its one host sync) `on_log(last_iteration, records)` gets the chunk
-    mean of every loss term, one record per video; `on_eval(i, optimizer)`
-    fires when `i % evaluate_every == 0 and i > start_iteration`
+    point, or at the fit's end, as in the JAX package.  Each loss phase
+    (the chunk's schedule flags) has one step function (`make_fit_step`);
+    on the card it is captured as a CUDA graph and a chunk replays it once
+    a step (atlas/graphs.py), else its steps run eagerly.  After each
+    chunk (its one host sync) `on_log(last_iteration, records)` gets the
+    chunk mean of every loss term, one record per video; `on_eval(i,
+    adam_state)` fires with the host Adam state when
+    `i % evaluate_every == 0 and i > start_iteration`
     (src/stage1_neural_atlas.py:246-251).  A non-finite loss dumps
-    `rescue_state(optimizer)` to `rescue_path` and raises.  Params are
-    updated in place; returns the optimizer and the iteration reached.
+    `rescue_state(adam_state)` to `rescue_path` and raises.  Params (and
+    the generator) are updated in place by the chunk's end; returns the
+    host Adam state and the iteration reached.  `graphs`: a `FitGraphs`
+    (a kept one replays the graphs of an earlier fit of this shape; one
+    with `eager=True` captures nothing); None, this fit's own.
 
     With `mesh`, every rank draws the samples of the whole fit and keeps
     its block of them.  The single fit shards its sample batch: rank 0's
     params are broadcast once, each step's gradients are summed over the
     ranks by one all-reduce of all of them, and each chunk's loss sums by
     one more, so every rank logs, evaluates and raises alike (only rank 0
-    writes the rescue file).  The multi-video fit shards the video axis:
-    `n_videos` counts the videos of all ranks, `params` and `packed` hold
-    this rank's block of them, and no collective runs in a step (each
-    chunk's records are gathered at its host sync, so every rank logs and
-    raises for every video).  `rescue_state` runs on every rank."""
+    writes the rescue file); its steps run eagerly.  The multi-video fit
+    shards the video axis: `n_videos` counts the videos of all ranks,
+    `params` and `packed` hold this rank's block of them, and no
+    collective runs in a step (each chunk's records are gathered at its
+    host sync, so every rank logs and raises for every video).
+    `rescue_state` runs on every rank."""
     device = packed.device
-    T, (H, W) = data.num_frames, data.res
-    flat = flat_params(params)
     sample_sharded = mesh is not None and n_videos is None
     if sample_sharded:
-        replicated(flat, mesh)
-    optimizer = make_optimizer(params, cfg.learning_rate)
-    adam_state_from_host(optimizer, params, opt_state)
+        replicated(flat_params(params), mesh)
+    graphs = graphs or FitGraphs()
+    capture = graphs.capturing(device, "fit", sample_sharded)
     shape = ((cfg.samples_batch,) if n_videos is None
              else (n_videos, cfg.samples_batch))
     lo, hi = block(shape[0], mesh)    # this rank's samples, or videos
+    key = ("fit", str(device), capture, tuple(packed.shape), shape, lo, hi,
+           specs, os.environ.get("DEFLICKER_IMLP_STASH") == "1",
+           step_config(cfg))
+    st = graphs.state(key, params, generator,
+                      lambda p: make_optimizer(p, cfg.learning_rate),
+                      packed=packed)
+    adam_state_from_host(st.optimizer, st.params, opt_state)
     boundaries = sorted({cfg.stop_global_rigidity + 1,
                          cfg.stop_bootstrapping_iteration + 1})
     eval_every = max(1, cfg.evaluate_every)
-    loss_fns: Dict[Tuple[bool, bool], Callable] = {}
+
+    def host_state() -> dict:
+        st.store(params, generator)
+        return adam_state_to_host(st.optimizer, st.params)
 
     i = start_iteration
     while i < cfg.iters_num:
@@ -418,33 +575,20 @@ def run_fit_schedule(params: Params, specs: AtlasSpecs, data: VideoData,
         nxt = min(nxt, cfg.iters_num)
         n_steps = nxt - i
 
-        if flags not in loss_fns:
-            loss_fns[flags] = make_loss_fn(specs, cfg, data, *flags)
-        loss_fn = loss_fns[flags]
-        sums: Optional[Dict[str, torch.Tensor]] = None
-        for _ in range(n_steps):
-            j = torch.randint(0, W, shape, generator=generator, device=device)
-            ii = torch.randint(0, H, shape, generator=generator, device=device)
-            f = torch.randint(0, T, shape, generator=generator, device=device)
-            norm = None
-            if sample_sharded:
-                # the whole batch's size and flow-mask counts (data, so no
-                # collective): this block's terms are shares of its loss
-                counts = packed[f, ii, j, 13:15].sum(0)
-                norm = (shape[0], counts[0], counts[1])
-            total, aux = loss_fn(params, packed, j[lo:hi], ii[lo:hi],
-                                 f[lo:hi], norm)
-            optimizer.zero_grad(set_to_none=True)
-            total.sum().backward()
-            if sample_sharded:
-                all_reduce_sum([p.grad for p in flat], mesh)
-            optimizer.step()
-            aux = {k: v.detach() for k, v in aux.items()}
-            sums = aux if sums is None else {k: sums[k] + aux[k] for k in sums}
+        if flags not in st.steps:
+            fn = make_fit_step(make_loss_fn(specs, cfg, data, *flags),
+                               st.params, st.optimizer, st.tensors["packed"],
+                               st.generator, shape, lo, hi,
+                               mesh if sample_sharded else None)
+            st.steps[flags] = CapturedStep(fn)
+        runner = st.steps[flags]
+        sums = runner.step.sums
+        if sums:
+            sums["vals"].zero_()
+        runner.run(graphs if capture else None, st, n_steps)
         i = nxt
         # the one host sync of the chunk: per-chunk mean of each loss term
-        keys = sorted(sums)
-        vals = torch.stack([sums[k] for k in keys])
+        keys, vals = sums["keys"], sums["vals"]
         if sample_sharded:
             all_reduce_sum(vals, mesh)
         elif mesh is not None:
@@ -461,7 +605,7 @@ def run_fit_schedule(params: Params, specs: AtlasSpecs, data: VideoData,
             # silently produce garbage)
             from ..utils.checkpoint import save_checkpoint
 
-            state, rescue = rescue_state(optimizer), rescue_path
+            state, rescue = rescue_state(host_state()), rescue_path
             if is_main(mesh):
                 rescue = save_checkpoint(rescue_path,
                                          {**state, "iteration": i})
@@ -469,10 +613,11 @@ def run_fit_schedule(params: Params, specs: AtlasSpecs, data: VideoData,
             raise FloatingPointError(
                 f"non-finite loss at iteration {i - 1}: {what} "
                 f"(state dumped to {rescue})")
+        st.store(params, generator)
         on_log(i - 1, recs)
         if (i - 1) % eval_every == 0 and i - 1 > start_iteration:
-            on_eval(i - 1, optimizer)
-    return optimizer, i
+            on_eval(i - 1, host_state())
+    return host_state(), i
 
 
 def fit_atlas(params: Params, specs: AtlasSpecs, data: VideoData,
@@ -481,7 +626,8 @@ def fit_atlas(params: Params, specs: AtlasSpecs, data: VideoData,
               eval_callback: Optional[Callable[[int, Params, dict], None]] = None,
               log_callback: Optional[Callable[[int, Dict[str, float]], None]] = None,
               rescue_path: str = "deflicker_rescue_checkpoint",
-              mesh: Optional[Mesh] = None) -> FitResult:
+              mesh: Optional[Mesh] = None,
+              graphs: Optional[FitGraphs] = None) -> FitResult:
     """Run the fit from `start_iteration` to `cfg.iters_num - 1` on the
     device of `params` (and of `generator`, which draws the samples).
 
@@ -490,7 +636,9 @@ def fit_atlas(params: Params, specs: AtlasSpecs, data: VideoData,
     (src/stage1_neural_atlas.py:246-251) — with the default config exactly
     once, at iteration 10000.  Params are updated in place.  With `mesh`
     the sample batch is sharded over its ranks (`run_fit_schedule`), every
-    rank calls `fit_atlas` alike and ends with the same params.
+    rank calls `fit_atlas` alike and ends with the same params.  On the
+    card each loss phase's step is one CUDA graph (`graphs`: see
+    `run_fit_schedule`).
     """
     device = params["mapping1"][0]["w"].device
     # one-gather sampling: the pack is the only fit tensor on the device
@@ -502,41 +650,50 @@ def fit_atlas(params: Params, specs: AtlasSpecs, data: VideoData,
         if log_callback is not None:
             log_callback(iteration, recs[0])
 
-    def on_eval(iteration, optimizer):
+    def on_eval(iteration, opt_host):
         if eval_callback is not None:
-            eval_callback(iteration, params,
-                          adam_state_to_host(optimizer, params))
+            eval_callback(iteration, params, opt_host)
 
-    optimizer, i = run_fit_schedule(
+    opt_host, i = run_fit_schedule(
         params, specs, data, packed, cfg, generator, None, start_iteration,
         opt_state, on_log, on_eval,
-        lambda opt: {"params": params,
-                     "opt_state": adam_state_to_host(opt, params)},
-        rescue_path, mesh)
-    return FitResult(params, adam_state_to_host(optimizer, params), i, logs)
+        lambda opt_host: {"params": params, "opt_state": opt_host},
+        rescue_path, mesh, graphs)
+    return FitResult(params, opt_host, i, logs)
 
 
 def pretrain_mapping(params: list, spec: IMLPSpec, generator: torch.Generator,
                      num_frames: int, H: int, W: int,
                      uv_mapping_scale: float, pretrain_iters: int = 100,
-                     batch: int = 10000, lr: float = 1e-4) -> list:
+                     batch: int = 10000, lr: float = 1e-4,
+                     graphs: Optional[FitGraphs] = None,
+                     n_videos: Optional[int] = None, lo: int = 0,
+                     hi: Optional[int] = None) -> list:
     """Identity-init pretraining: drive mapping(x, y, t) ≈ scale * (x, y)
     with the reference's schedule (src/models/stage_1/unwrap_utils.py:176-198):
     `pretrain_iters` sweeps over all frames, `batch` random pixels per
-    frame-step, Adam(lr) on ||xy * scale - uv||, plain fp32 forward.
-    Params are updated in place and returned."""
+    frame-step, Adam(lr) on ||xy * scale - uv||, plain fp32 forward.  The
+    steps are `make_pretrain_step`'s: on the card one CUDA graph replayed
+    `pretrain_iters x num_frames` times (`graphs` as in
+    `run_fit_schedule`), eager steps elsewhere.  `n_videos`, `lo`, `hi`:
+    the stacked mappings of `multifit.pretrain_mapping_multi`.  Params are
+    updated in place and returned."""
     device = params[0]["w"].device
-    L = max(H, W)
-    opt = _adam([layer[k] for layer in params for k in ("w", "b")], lr)
-    for _ in range(pretrain_iters):
-        for f in range(num_frames):
-            i = torch.randint(0, H, (batch,), generator=generator, device=device)
-            j = torch.randint(0, W, (batch,), generator=generator, device=device)
-            xyt = normalize_xyt(j, i, torch.full((batch,), f, device=device),
-                                L, num_frames)
-            uv = imlp_apply(params, xyt, spec)
-            loss = torch.mean(safe_norm(xyt[:, :2] * uv_mapping_scale - uv))
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
+    graphs = graphs or FitGraphs()
+    capture = graphs.capturing(device, "pretrain")
+    key = ("pretrain", str(device), capture, spec, num_frames, H, W,
+           uv_mapping_scale, batch, lr, n_videos, lo, hi)
+    st = graphs.state(key, {"mapping": params}, generator,
+                      lambda p: _adam(flat_params(p), lr),
+                      frame=torch.zeros((), dtype=torch.int64, device=device))
+    adam_state_from_host(st.optimizer, st.params, None)
+    if None not in st.steps:
+        fn = make_pretrain_step(st.params["mapping"], spec, st.optimizer,
+                                st.generator, st.tensors["frame"], num_frames,
+                                H, W, uv_mapping_scale, batch, n_videos, lo,
+                                hi)
+        st.steps[None] = CapturedStep(fn)
+    st.steps[None].run(graphs if capture else None, st,
+                       pretrain_iters * num_frames)
+    st.store({"mapping": params}, generator)
     return params

@@ -14,7 +14,10 @@ leading video axis explicitly:
   * every network query of a step is ONE chain-kernel launch for all V
     videos (the V-batched form in csrc/imlp_chain.cu), so a step launches
     as many kernels as a one-video step;
-  * samples are drawn as (V, B) from one `torch.Generator`.
+  * samples are drawn as (V, B) from one `torch.Generator`;
+  * on the card a step is one CUDA graph replay, as in the single fit
+    (atlas/graphs.py), the counterpart of the JAX module's scanned
+    `_run_chunk_multi`.
 
 The fit loop (chunk boundaries, the stop of global rigidity and of
 bootstrapping, the eval cadence, the non-finite rescue) is `fit_atlas`'s:
@@ -40,15 +43,14 @@ import numpy as np
 import torch
 
 from ..config import AtlasConfig
-from ..losses import safe_norm
-from ..models.imlp import imlp_apply, imlp_init
-from ..ops.coords import normalize_xyt
+from ..models.imlp import imlp_init
 from ..parallel.mesh import Mesh, block, is_main, shard_constraint
 from ..utils.convert import atlas_params_from_jax
 from ..utils.device import synchronize
 from .data import VideoData
-from .engine import (AtlasSpecs, FitResult, Params, _adam, adam_state_to_host,
-                     run_fit_schedule)
+from .engine import (AtlasSpecs, FitResult, Params, pretrain_mapping,
+                     pretrain_samples, run_fit_schedule)
+from .graphs import FitGraphs
 from .render import evaluate_and_save
 from .texture import export_atlas_artifacts
 
@@ -85,46 +87,26 @@ def init_models_multi(specs: AtlasSpecs, generator: torch.Generator,
                             n_videos=n_videos) for name in nets}
 
 
-def pretrain_samples(generator: torch.Generator, n_videos: int, batch: int,
-                     H: int, W: int, device):
-    """One pretrain step's pixel rows i and columns j, each (V, batch)."""
-    i = torch.randint(0, H, (n_videos, batch), generator=generator,
-                      device=device)
-    j = torch.randint(0, W, (n_videos, batch), generator=generator,
-                      device=device)
-    return i, j
-
-
 def pretrain_mapping_multi(params_v: list, spec, generator: torch.Generator,
                            num_frames: int, H: int, W: int,
                            uv_mapping_scale: float, pretrain_iters: int = 100,
                            batch: int = 10000, lr: float = 1e-4,
-                           mesh: Optional[Mesh] = None) -> list:
+                           mesh: Optional[Mesh] = None,
+                           graphs: Optional[FitGraphs] = None) -> list:
     """`engine.pretrain_mapping` for V stacked mappings at once (plain fp32,
     the same schedule and loss per video): each step draws (V, batch)
-    samples, the per-video losses sum into one backward, one Adam updates
-    the stacks.  With `mesh` the stacks hold this rank's block of the
-    group's videos: each step draws the whole group's samples and keeps
-    the block's.  Params are updated in place and returned."""
-    device = params_v[0]["w"].device
+    samples (`pretrain_samples`), the per-video losses sum into one
+    backward, one Adam updates the stacks; on the card one CUDA graph a
+    step (`graphs` as in `engine.pretrain_mapping`).  With `mesh` the
+    stacks hold this rank's block of the group's videos: each step draws
+    the whole group's samples and keeps the block's.  Params are updated
+    in place and returned."""
     V = params_v[0]["w"].shape[0]
     n_all = V * (mesh.size if mesh is not None else 1)
     lo, hi = block(n_all, mesh)
-    L = max(H, W)
-    opt = _adam([layer[k] for layer in params_v for k in ("w", "b")], lr)
-    for _ in range(pretrain_iters):
-        for f in range(num_frames):
-            i, j = pretrain_samples(generator, n_all, batch, H, W, device)
-            i, j = i[lo:hi], j[lo:hi]
-            xyt = normalize_xyt(j, i, torch.full((V, batch), f, device=device),
-                                L, num_frames)
-            uv = imlp_apply(params_v, xyt, spec)
-            loss = torch.mean(safe_norm(xyt[..., :2] * uv_mapping_scale - uv),
-                              dim=-1).sum()
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
-    return params_v
+    return pretrain_mapping(params_v, spec, generator, num_frames, H, W,
+                            uv_mapping_scale, pretrain_iters, batch, lr,
+                            graphs, n_videos=n_all, lo=lo, hi=hi)
 
 
 def unstack_tree(tree, n: int) -> list:
@@ -166,7 +148,8 @@ def fit_atlas_multi(params_v: Params, specs: AtlasSpecs, data_v: VideoData,
                     log_callback: Optional[Callable] = None,
                     checkpoint_callback: Optional[Callable] = None,
                     rescue_path: str = "deflicker_rescue_checkpoint_multi",
-                    mesh: Optional[Mesh] = None) -> List[FitResult]:
+                    mesh: Optional[Mesh] = None,
+                    graphs: Optional[FitGraphs] = None) -> List[FitResult]:
     """Fit V videos at once from `start_iteration` to `cfg.iters_num - 1`
     (`fit_atlas`'s loop, `engine.run_fit_schedule`, with a video axis);
     returns one FitResult per video.
@@ -180,7 +163,7 @@ def fit_atlas_multi(params_v: Params, specs: AtlasSpecs, data_v: VideoData,
     point and once at the end.  Resume: pass `start_iteration` (the steps
     done), the saved `opt_state_v`, and a generator set to the saved state;
     the continuation then replays the uninterrupted fit exactly.  Params
-    are updated in place.
+    are updated in place.  `graphs`: see `engine.run_fit_schedule`.
 
     With `mesh`, `params_v`, `data_v` and `opt_state_v` hold this rank's
     block of a group of V = blocks x ranks videos (an even split); the
@@ -193,9 +176,10 @@ def fit_atlas_multi(params_v: Params, specs: AtlasSpecs, data_v: VideoData,
     def gather(x: torch.Tensor) -> torch.Tensor:
         return shard_constraint(x.detach(), mesh, 0, V)
 
-    def state(optimizer):
-        """Params, host Adam state (all V videos) and generator state."""
-        params, opt = params_v, adam_state_to_host(optimizer, params_v)
+    def state(opt):
+        """Params, host Adam state `opt` (all V videos) and generator
+        state."""
+        params = params_v
         if mesh is not None:
             params = {name: [{k: gather(t) for k, t in layer.items()}
                              for layer in layers]
@@ -213,10 +197,10 @@ def fit_atlas_multi(params_v: Params, specs: AtlasSpecs, data_v: VideoData,
             if log_callback is not None:
                 log_callback(iteration, v, rec)
 
-    def on_eval(iteration, optimizer):
+    def on_eval(iteration, opt):
         if eval_callback is None and checkpoint_callback is None:
             return
-        st = state(optimizer)
+        st = state(opt)
         if eval_callback is not None:
             opts = opt_state_per_video(st["opt_state_v"], V)
             for v, p in enumerate(unstack_tree(st["params_v"], V)):
@@ -224,11 +208,11 @@ def fit_atlas_multi(params_v: Params, specs: AtlasSpecs, data_v: VideoData,
         if checkpoint_callback is not None:
             checkpoint_callback(iteration + 1, st)
 
-    optimizer, i = run_fit_schedule(
+    opt, i = run_fit_schedule(
         params_v, specs, first_video(data_v), data_v.packed.to(device), cfg,
         generator, V, start_iteration, opt_state_v, on_log, on_eval, state,
-        rescue_path, mesh)
-    st = state(optimizer)
+        rescue_path, mesh, graphs)
+    st = state(opt)
     if checkpoint_callback is not None:
         checkpoint_callback(i, st)
     opts = opt_state_per_video(st["opt_state_v"], V)
@@ -241,7 +225,8 @@ def fit_group(datas: Sequence[VideoData], specs: AtlasSpecs,
               resume: Optional[dict] = None,
               log_callback: Optional[Callable] = None,
               checkpoint_callback: Optional[Callable] = None,
-              mesh: Optional[Mesh] = None) -> dict:
+              mesh: Optional[Mesh] = None,
+              graphs: Optional[FitGraphs] = None) -> dict:
     """One V-batched fit of same-shaped videos, as the chunked pipeline and
     the batch CLI run it: stack the videos, init the V networks of each
     kind and pretrain the mappings (or take params, Adam moments and the fit
@@ -253,7 +238,8 @@ def fit_group(datas: Sequence[VideoData], specs: AtlasSpecs,
 
     With `mesh` the videos split over its ranks when their count divides
     by the ranks (else every rank fits them all); every rank returns every
-    video's result and calls the callbacks alike."""
+    video's result and calls the callbacks alike.  `graphs`: a kept
+    `FitGraphs` whose graphs the pretrains and the fit replay."""
     g_init, g_pre, g_fit, g_pre2 = generators
     V = len(datas)
     if mesh is not None and (mesh.size <= 1 or V % mesh.size):
@@ -278,7 +264,8 @@ def fit_group(datas: Sequence[VideoData], specs: AtlasSpecs,
             if on:
                 pretrain_mapping_multi(params_v[name], getattr(specs, name), g,
                                        T, H, W, cfg.uv_mapping_scale,
-                                       cfg.pretrain_iter_number, mesh=mesh)
+                                       cfg.pretrain_iter_number, mesh=mesh,
+                                       graphs=graphs)
     synchronize(device)
     t2 = time.time()
     results = fit_atlas_multi(params_v, specs, data_v, cfg, g_fit,
@@ -286,7 +273,7 @@ def fit_group(datas: Sequence[VideoData], specs: AtlasSpecs,
                               opt_state_v=opt_state_v,
                               log_callback=log_callback,
                               checkpoint_callback=checkpoint_callback,
-                              mesh=mesh)
+                              mesh=mesh, graphs=graphs)
     synchronize(device)
     return {"results": results, "start_iteration": start_iteration,
             "t_pretrain": t2 - t1, "t_fit": time.time() - t2}

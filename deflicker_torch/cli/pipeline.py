@@ -136,8 +136,8 @@ def _chunk_starts(T_all: int, cap: int):
 
 def _run_stage1_chunked(frames_dir: Path, atlas_cfg: AtlasConfig,
                         device: torch.device, dual: bool, resy: int, resx: int,
-                        results_folder: Path, mesh: Optional[Mesh] = None
-                        ) -> Dict:
+                        results_folder: Path, mesh: Optional[Mesh] = None,
+                        graphs=None) -> Dict:
     """Long-video stage 1: T > maximum_number_of_frames (the JAX package's
     `_run_stage1_chunked`).
 
@@ -158,7 +158,7 @@ def _run_stage1_chunked(frames_dir: Path, atlas_cfg: AtlasConfig,
     (`opt_state_v`, `key_data`) resumes its params, Adam moments and
     iteration; its JAX PRNG state cannot be replayed here, so the samples
     restart from the port's fit generator.  With `mesh` the chunks split
-    over the ranks (`multifit.fit_group`)."""
+    over the ranks (`multifit.fit_group`); `graphs` is `run_stage1`'s."""
     from ..atlas.multifit import fit_group, save_group
     from ..utils.checkpoint import save_checkpoint
 
@@ -214,7 +214,8 @@ def _run_stage1_chunked(frames_dir: Path, atlas_cfg: AtlasConfig,
         datas, specs, atlas_cfg, _generators(atlas_cfg.seed, device), device,
         resume=resume, checkpoint_callback=save_group_ckpt,
         log_callback=lambda i, v, rec: logger.log(
-            i, {f"chunk{v}/{k}": val for k, val in rec.items()}), mesh=mesh)
+            i, {f"chunk{v}/{k}": val for k, val in rec.items()}), mesh=mesh,
+        graphs=graphs)
     results = fit["results"]
 
     t3 = time.time()
@@ -266,7 +267,8 @@ def fit_profiler(device: torch.device):
 def run_stage1(frames_dir: Path, cfg: PipelineConfig,
                atlas_cfg: AtlasConfig, device, dual: bool = False,
                results_root: Optional[Path] = None,
-               flow_provider=None, mesh: Optional[Mesh] = None) -> Dict:
+               flow_provider=None, mesh: Optional[Mesh] = None,
+               graphs=None) -> Dict:
     """Flow preprocessing + atlas fit + render
     (src/stage1_neural_atlas[_seg].py main()).  `dual` reads the
     `<vid>_seg` masks, fits mapping2 and alpha beside mapping1 and the
@@ -279,7 +281,10 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
     traces the fit (`fit_profiler`).  With `mesh` (every rank calls it
     alike, `device` is the rank's) the flow pairs, the fit's samples and
     the render's frames split over the ranks; rank 0 writes, and all
-    return once the stage's files are on disk."""
+    return once the stage's files are on disk.  On the card the pretrains
+    and the fit run as CUDA graphs (atlas/graphs.py): captured anew for
+    this fit, or replayed from `graphs` (a kept `FitGraphs`, a
+    `Deflickerer`'s) when an earlier fit had this shape."""
     device = torch.device(mesh.device if mesh is not None else device)
     t0 = time.time()
     if flow_provider is None:
@@ -300,7 +305,7 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
     T_all = len(list_frames(frames_dir))
     if T_all > atlas_cfg.maximum_number_of_frames:
         out = _run_stage1_chunked(frames_dir, atlas_cfg, device, dual, resy,
-                                  resx, results_folder, mesh)
+                                  resx, results_folder, mesh, graphs)
         out.update(results_folder=results_folder, t_flow=t_flow)
         barrier(mesh)
         return out
@@ -330,11 +335,11 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
         if atlas_cfg.pretrain_mapping1:
             pretrain_mapping(params["mapping1"], specs.mapping1, g_pre, T, H, W,
                              atlas_cfg.uv_mapping_scale,
-                             atlas_cfg.pretrain_iter_number)
+                             atlas_cfg.pretrain_iter_number, graphs=graphs)
         if dual and atlas_cfg.pretrain_mapping2:
             pretrain_mapping(params["mapping2"], specs.mapping2, g_pre2, T, H,
                              W, atlas_cfg.uv_mapping_scale,
-                             atlas_cfg.pretrain_iter_number)
+                             atlas_cfg.pretrain_iter_number, graphs=graphs)
         synchronize(device)
         t_pretrain = time.time() - t1
 
@@ -350,7 +355,7 @@ def run_stage1(frames_dir: Path, cfg: PipelineConfig,
                            start_iteration=start_iteration,
                            opt_state=opt_state, eval_callback=eval_cb,
                            log_callback=lambda i, rec: logger.log(i, rec),
-                           mesh=mesh)
+                           mesh=mesh, graphs=graphs)
         synchronize(device)
         t_fit = time.time() - t2        # the trace's export is not in it
 
@@ -413,11 +418,12 @@ def run_stage2(frames_dir: Path, cfg: PipelineConfig, device,
 
 def run_pipeline(cfg: PipelineConfig, atlas_cfg: Optional[AtlasConfig] = None,
                  device=None, flow_provider=None, filter_engine=None,
-                 mesh: Optional[Mesh] = None) -> Dict:
+                 mesh: Optional[Mesh] = None, graphs=None) -> Dict:
     """The full test.py-equivalent pipeline on `device` (default
     `cuda:<cfg.gpu>`; raises without a CUDA device unless device="cpu").
     Returns a metrics dict.  With `mesh` every rank calls it alike, on its
-    rank's device; every rank returns the same metrics."""
+    rank's device; every rank returns the same metrics.  `graphs`: the
+    stage-1 fit's kept CUDA graphs (`run_stage1`)."""
     if mesh is not None:
         device = mesh.device
     device = resolve_device(f"cuda:{cfg.gpu}" if device is None else device)
@@ -439,7 +445,7 @@ def run_pipeline(cfg: PipelineConfig, atlas_cfg: Optional[AtlasConfig] = None,
             preprocess_masks(frames_dir, provider)
     frames_dir = broadcast_object(frames_dir, mesh)   # a barrier too
     s1 = run_stage1(frames_dir, cfg, atlas_cfg, device, dual=dual,
-                    flow_provider=flow_provider, mesh=mesh)
+                    flow_provider=flow_provider, mesh=mesh, graphs=graphs)
     s2 = run_stage2(frames_dir, cfg, device, engine=filter_engine, mesh=mesh)
 
     total = time.time() - t_start

@@ -806,3 +806,243 @@ def test_train_stage2_repeats_bit_for_bit_on_card(dtype, cuda_device,
     assert len(flat[0]) == len(flat[1]) > 0
     for a, b in zip(*flat):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+# ---------------------------------------------------------------------------
+# the stage-1 fit as CUDA graphs (atlas/graphs.py)
+# ---------------------------------------------------------------------------
+
+def _fit_case(device, dual=False, T=6, H=40, W=56, V=None, seed=0):
+    """A random VideoData (its pack on `device`), narrow specs, a config
+    whose global rigidity stops at step 20 (the dual bootstrap at 30), and
+    fresh params."""
+    import dataclasses
+
+    from deflicker_torch.atlas import engine as E
+    from deflicker_torch.atlas.data import VideoData
+    from deflicker_torch.atlas.multifit import init_models_multi
+    from deflicker_torch.config import AtlasConfig
+
+    rng = np.random.default_rng(seed)
+
+    def one():
+        f32 = lambda *s: rng.uniform(0, 1, s).astype(np.float32)
+        return VideoData(f32(T, H, W, 3), f32(T, H, W, 3) - 0.5,
+                         f32(T, H, W, 3) - 0.5, (f32(T, H, W) > 0.5) * 1.0,
+                         3 * f32(T, H, W, 2) - 1.5, 3 * f32(T, H, W, 2) - 1.5,
+                         (f32(T, H, W) > 0.3) * 1.0, (f32(T, H, W) > 0.3) * 1.0)
+
+    cfg = dataclasses.replace(
+        AtlasConfig(), samples_batch=2000, number_of_channels_atlas=64,
+        number_of_channels_mapping1=64, number_of_channels_mapping2=64,
+        number_of_channels_alpha=64, steps_per_call=10, evaluate_every=10 ** 6,
+        stop_global_rigidity=20, stop_bootstrapping_iteration=30,
+        global_rigidity_derivative_amount_fg=5,
+        global_rigidity_derivative_amount_bg=5)
+    specs = E.build_specs(cfg, dual=dual)
+    if V is None:
+        data = one().with_packed(device)
+        params = E.init_models(specs, torch.Generator().manual_seed(seed), device)
+    else:
+        from deflicker_torch.atlas.multifit import stack_video_data
+
+        data = stack_video_data([one() for _ in range(V)], device)
+        params = init_models_multi(specs, torch.Generator().manual_seed(seed),
+                                   V, device)
+    return cfg, specs, data, params
+
+
+def _clone(params):
+    return {k: [{kk: t.detach().clone().requires_grad_() for kk, t in l.items()}
+                for l in v] for k, v in params.items()}
+
+
+def _run_fit(params, specs, data, cfg, device, graphs=None, V=None, **kw):
+    """(params, host Adam state, logs, generator state) of a fit from seed
+    3 through `graphs` (None: the fit's own); `kw` to fit_atlas /
+    fit_atlas_multi."""
+    from deflicker_torch.atlas import engine as E
+    from deflicker_torch.atlas.multifit import fit_atlas_multi
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    p = _clone(params)
+    if V is None:
+        res = E.fit_atlas(p, specs, data, cfg, gen, graphs=graphs, **kw)
+        return p, res.opt_state, res.logs, gen.get_state()
+    res = fit_atlas_multi(p, specs, data, cfg, gen, graphs=graphs, **kw)
+    return (p, [r.opt_state for r in res], [r.logs for r in res],
+            gen.get_state())
+
+
+def _assert_same_fit(a, b):
+    pa, oa, la, ga = a
+    pb, ob, lb, gb = b
+    for x, y in zip(*([t for n in sorted(p) for l in p[n]
+                       for t in (l["w"], l["b"])] for p in (pa, pb))):
+        assert torch.equal(x, y)
+    for sa, sb in zip(oa if isinstance(oa, list) else [oa],
+                      ob if isinstance(ob, list) else [ob]):
+        assert sa["step"] == sb["step"]
+        for k in ("exp_avg", "exp_avg_sq"):
+            for x, y in zip(sa[k], sb[k]):
+                np.testing.assert_array_equal(x, y)
+    assert la == lb
+    assert torch.equal(ga, gb)
+
+
+def test_captured_randint_draws_equal_eager_draws(cuda_device):
+    """The fit's draws (j, i, f of three shapes) from a generator registered
+    with a graph: each replay draws what the eager calls draw from the same
+    state, and the generator's state after the replays is the eager one's."""
+    shapes = [((2000,), 56), ((2000,), 40), ((3, 2000), 6)]
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    start = gen.get_state()
+    eager = [[torch.randint(0, n, s, generator=gen, device=cuda_device)
+              for s, n in shapes] for _ in range(5)]
+    after = gen.get_state()
+    gen.set_state(start)
+    out = [torch.zeros(s, dtype=torch.int64, device=cuda_device)
+           for s, _ in shapes]
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+        for o, (s, n) in zip(out, shapes):
+            o.copy_(torch.randint(0, n, s, generator=gen, device=cuda_device))
+    assert torch.equal(gen.get_state(), start)      # capture draws nothing
+    for step in eager:
+        graph.replay()
+        for o, e in zip(out, step):
+            assert torch.equal(o, e)
+    assert torch.equal(gen.get_state(), after)
+
+
+@pytest.mark.parametrize("dual", [False, True])
+def test_captured_fit_equals_the_eager_fit(dual, cuda_device):
+    """50 fit steps across the global-rigidity stop (and, dual, the
+    bootstrap's): captured and eager fits bit-equal in params, Adam state,
+    chunk logs and the generator's state; one graph a loss phase; the chain
+    counters read networks x steps after the captured fit."""
+    from deflicker_torch.atlas.graphs import FitGraphs
+
+    cfg, specs, data, params = _fit_case(cuda_device, dual=dual)
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, iters_num=50)
+    eager = _run_fit(params, specs, data, cfg, cuda_device,
+                     FitGraphs(eager=True))
+    graphs = FitGraphs()
+    K.reset_launches()
+    captured = _run_fit(params, specs, data, cfg, cuda_device, graphs)
+    torch.cuda.synchronize()
+    _assert_same_fit(captured, eager)
+    assert graphs.captured == (3 if dual else 2)
+    nets = 4 if dual else 2
+    assert K.launches["fwd"] == K.launches["bwd"] == nets * 50
+
+
+def test_captured_video_axis_fit_and_its_resume(cuda_device):
+    """The V = 2 fit: captured equals eager across the phase switch; the
+    captured fit resumed from its checkpoint state at an eval point (params,
+    Adam moments, generator state) ends where the uninterrupted one ends;
+    launches read 2 x steps with the video axis."""
+    import dataclasses
+
+    from deflicker_torch.atlas.graphs import FitGraphs
+    from deflicker_torch.atlas.multifit import fit_atlas_multi
+
+    cfg, specs, data, params = _fit_case(cuda_device, V=2)
+    cfg = dataclasses.replace(cfg, iters_num=40, evaluate_every=24)
+    eager = _run_fit(params, specs, data, cfg, cuda_device,
+                     FitGraphs(eager=True), V=2)
+    K.reset_launches()
+    saved = {}
+
+    def keep(done, st):
+        if done == 25:
+            saved.update(
+                params_v={k: [{kk: t.detach().clone() for kk, t in l.items()}
+                              for l in v] for k, v in st["params_v"].items()},
+                opt_state_v=st["opt_state_v"],
+                generator_state=st["generator_state"].clone())
+
+    captured = _run_fit(params, specs, data, cfg, cuda_device, V=2,
+                        checkpoint_callback=keep)
+    torch.cuda.synchronize()
+    assert K.launches["fwd_v"] == K.launches["bwd_v"] == 2 * 40
+    _assert_same_fit(captured, eager)
+
+    gen = torch.Generator(device=cuda_device)
+    gen.set_state(saved["generator_state"])
+    p = _clone(saved["params_v"])
+    res = fit_atlas_multi(p, specs, data, cfg, gen, start_iteration=25,
+                          opt_state_v=saved["opt_state_v"])
+    for x, y in zip([t for n in sorted(p) for l in p[n] for t in l.values()],
+                    [t for n in sorted(captured[0]) for l in captured[0][n]
+                     for t in l.values()]):
+        assert torch.equal(x, y)
+    assert torch.equal(gen.get_state(), captured[3])
+    assert res[0].opt_state["step"] == 40
+
+
+@pytest.mark.parametrize("V", [None, 3])
+def test_captured_pretrain_equals_the_eager_pretrain(V, cuda_device):
+    """The pretrain (one graph replayed sweeps x frames times, the frame a
+    device counter) equals the eager pretrain bit for bit: params and the
+    generator's state."""
+    from deflicker_torch.atlas import engine as E
+    from deflicker_torch.atlas.graphs import FitGraphs
+    from deflicker_torch.atlas.multifit import pretrain_mapping_multi
+
+    _, specs, data, params = _fit_case(cuda_device, V=V)
+    out = []
+    for eager in (True, False):
+        p = _clone(params)["mapping1"]
+        gen = torch.Generator(device=cuda_device).manual_seed(1)
+        graphs = FitGraphs(eager=eager)
+        run = E.pretrain_mapping if V is None else pretrain_mapping_multi
+        run(p, specs.mapping1, gen, 6, 40, 56, 0.8, pretrain_iters=4,
+            batch=3000, graphs=graphs)
+        out.append((p, gen.get_state(), graphs.captured))
+    assert out[1][2] == 1 and out[0][2] == 0
+    for a, b in zip(out[0][0], out[1][0]):
+        assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
+    assert torch.equal(out[0][1], out[1][1])
+
+
+def test_kept_graphs_replay_a_second_fit_of_the_shape(cuda_device):
+    """Kept graphs (a `Deflickerer`'s): a second fit of the same shape
+    from other data, params and seed captures nothing and equals that fit
+    run eagerly."""
+    import dataclasses
+
+    from deflicker_torch.atlas.graphs import FitGraphs
+
+    cfg, specs, data, params = _fit_case(cuda_device)
+    cfg = dataclasses.replace(cfg, iters_num=30)
+    kept = FitGraphs(keep=True)
+    _run_fit(params, specs, data, cfg, cuda_device, kept)
+    assert kept.captured == 2
+    _, _, data2, params2 = _fit_case(cuda_device, seed=1)
+    second = _run_fit(params2, specs, data2, cfg, cuda_device, kept)
+    assert kept.captured == 2
+    _assert_same_fit(second, _run_fit(params2, specs, data2, cfg, cuda_device,
+                                      FitGraphs(eager=True)))
+
+
+def test_captured_fit_under_the_profiler(cuda_device):
+    """A fit captured under torch.profiler (DEFLICKER_PROFILE's window):
+    the capture succeeds and the trace holds the chain kernels of the
+    replays."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, specs, data, params = _fit_case(cuda_device)
+    cfg = dataclasses.replace(cfg, iters_num=12, stop_global_rigidity=0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _run_fit(params, specs, data, cfg, cuda_device)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("chain_fwd_kernel" in n for n in names) >= 2 * 12, len(names)
