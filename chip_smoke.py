@@ -1584,14 +1584,24 @@ def phase_serve(device) -> dict:
         jobs = []
         process = d.process
 
+        def captures():
+            return (d.fit_graphs.captured, d.flow_provider.graphs.captured,
+                    d.filter_engine.graphs.captured)
+
         def process_counted(**job):
-            before, graphs = read_counters(), d.fit_graphs.captured
+            before, graphs = read_counters(), captures()
+            keys = set(d.flow_provider.graphs.entries)
             out = process(**job)
             torch.cuda.synchronize(device)
             after = read_counters()
+            fit, solve, refine = (x - y for x, y in zip(captures(), graphs))
             jobs.append({"launches": {k: after[k] - before[k] for k in after
                                       if after[k] != before[k]},
-                         "graphs_captured": d.fit_graphs.captured - graphs,
+                         "graphs_captured": fit, "solve_graphs_captured": solve,
+                         "refine_graphs_captured": refine,
+                         "solve_keys": sorted(
+                             str(k[:3]) for k in
+                             set(d.flow_provider.graphs.entries) - keys),
                          "loads": dict(loads),
                          "libraries": dict(build._loaded)})
             return out
@@ -1649,6 +1659,15 @@ def phase_serve(device) -> dict:
     if [j["graphs_captured"] for j in jobs] != [2, 0, 0]:
         raise AssertionError("graphs captured per job "
                              f"{[j['graphs_captured'] for j in jobs]}, want [2, 0, 0]")
+    # job 1 captures a solve for its full batches and one for its tail
+    # batch, and its refinement step; jobs 2 and 3, of its shapes, none
+    tail = (SERVE_FRAMES - 1) % PAIR_BATCH
+    want_solves = 2 if tail else 1
+    if [(j["solve_graphs_captured"], j["refine_graphs_captured"])
+            for j in jobs] != [(want_solves, 1), (0, 0), (0, 0)]:
+        raise AssertionError("solve and refinement graphs captured per job "
+                             f"{[(j['solve_graphs_captured'], j['refine_graphs_captured']) for j in jobs]}"
+                             f", want [({want_solves}, 1), (0, 0), (0, 0)]")
     want = {"fwd": 3 * per, "bwd": 3 * per, "lookup": 2 * RAFT_ITERS * solves}
     if {k: v for k, v in launches.items() if v} != want:
         raise AssertionError(f"launches {launches}, want {want}")
@@ -1663,7 +1682,10 @@ def phase_serve(device) -> dict:
         print(f"[serve] job {k + 1}" + (" (cold)" if k == 0 else " (warm)")
               + (" profiled" if k == 2 else "") + " "
               + json.dumps({**{x: r[x] for x in keys}, "launches": j["launches"],
-                            "graphs_captured": j["graphs_captured"]}),
+                            "graphs_captured": j["graphs_captured"],
+                            "solve_graphs_captured": j["solve_graphs_captured"],
+                            "solve_keys": j["solve_keys"],
+                            "refine_graphs_captured": j["refine_graphs_captured"]}),
               flush=True)
     print(f"[serve] error line: {res[3]['error']!r}", flush=True)
 
@@ -1692,6 +1714,29 @@ def phase_serve(device) -> dict:
     if n_states != 2 or kept_gib[0] <= 0:
         raise AssertionError(f"{n_states} kept states freed {kept_gib} GiB "
                              "when dropped, want 2 states and memory freed")
+    # the same for the engines' solve and refinement graphs (static
+    # buffers and the two pools)
+    from deflicker_torch.atlas.graphs import InferenceGraphs
+
+    n_keys = (len(d.flow_provider.graphs.entries),
+              len(d.filter_engine.graphs.entries))
+    gc.disable()
+    try:
+        d.flow_provider.graphs = InferenceGraphs(device, "RAFT solves")
+        d.filter_engine.graphs = InferenceGraphs(device, "refinement steps")
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        after = (torch.cuda.memory_allocated(device),
+                 torch.cuda.memory_reserved(device))
+    finally:
+        gc.enable()
+    infer_gib = [(h - a) / 2 ** 30 for h, a in zip(left, after)]
+    print(f"[serve] {n_keys[0]} solve and {n_keys[1]} refinement graphs hold "
+          f"{infer_gib[0]:.4f} GiB allocated, {infer_gib[1]:.4f} GiB reserved",
+          flush=True)
+    if infer_gib[0] <= 0 or infer_gib[1] <= 0:
+        raise AssertionError(f"the engines' graphs freed {infer_gib} GiB when "
+                             "dropped")
 
     # the stage CLIs on clip B, whose results no later job rewrote
     out = io.StringIO()
@@ -1716,7 +1761,8 @@ def phase_serve(device) -> dict:
         "trace_mb": sum(t.stat().st_size for t in traces) / 2 ** 20,
         "evaluate_psnr_mean": m["psnr_mean"], "evaluate_ewarp_mean":
         m.get("ewarp_mean"), "stage2_cli_s": t_stage2_cli,
-        "kept_states": n_states, "kept_states_gib": kept_gib}
+        "kept_states": n_states, "kept_states_gib": kept_gib,
+        "solve_refine_graphs": n_keys, "solve_refine_graphs_gib": infer_gib}
     print("[serve] " + json.dumps(summary), flush=True)
     return launches
 
@@ -2375,11 +2421,17 @@ def report_profile(tag: str, unit: str, n: int, wall_plain: float, wall: float,
               f"  {key[:90]}")
 
 
-def phase_raft_profile(device, frames: Path, solves: int = 3) -> None:
+def phase_raft_profile(device, frames: Path, solves: int = 10) -> None:
     """Where a flow solve's time goes: `RAFTFlow.compute_batch` on one batch
     of the clip (4 pairs x 2 directions at 432x768, 20 iterations, bf16),
-    upload and download included, timed plain and under torch.profiler,
-    once with each correlation body (band, shared, resident)."""
+    upload and download included, with each correlation body (band,
+    shared, resident), eagerly (`capture=False`) and captured (one engine
+    whose graphs of the three bodies stay kept: its first call per body
+    solves eagerly and captures, its later calls replay).  Per body: both
+    engines' first calls, then `solves` solves timed plain in the order
+    eager, captured, captured, eager, then `solves` of each under
+    torch.profiler.  The captured flow must equal the eager flow bit for
+    bit, and each profile must hold the body's 20 lookups a solve."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2390,26 +2442,212 @@ def phase_raft_profile(device, frames: Path, solves: int = 3) -> None:
     ims = [load_flow_image(f) for f in files]
     a = np.stack(ims[:-1] + ims[1:])
     b = np.stack(ims[1:] + ims[:-1])
-    engine = RAFTFlow(WORK / "raft-random.pth", device=device)
+    engines = {"eager": RAFTFlow(WORK / "raft-random.pth", device=device,
+                                 capture=False),
+               "captured": RAFTFlow(WORK / "raft-random.pth", device=device)}
     switches = {"band": {}, "shared": {"DEFLICKER_CORR_SHARED": "1"},
                 "resident": {"DEFLICKER_CORR_RESIDENT": "1"}}
+
+    def timed(engine, n=solves):
+        """(seconds of n solves, the device synchronised around them, the
+        last flow)."""
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(n):
+            flow = engine.compute_batch(a, b)
+        torch.cuda.synchronize()
+        return time.time() - t0, flow
+
     for body, values in switches.items():
+        flows, first_ms = {}, {}
+        walls = {mode: [] for mode in engines}
         with env(**values):
-            engine.compute_batch(a, b)                   # warm-up
-            torch.cuda.synchronize()
+            for mode, engine in engines.items():   # warm-up (and capture)
+                first_ms[mode] = 1e3 * timed(engine, 1)[0]
+            for mode in ("eager", "captured", "captured", "eager"):
+                wall, flows[mode] = timed(engines[mode])
+                walls[mode].append(wall)
+            for mode, engine in engines.items():
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    wall, _ = timed(engine)
+                lookups = sum(n for _, n, name in device_events(prof)
+                              if "corr_lookup" in name)
+                if lookups != RAFT_ITERS * solves:
+                    raise AssertionError(f"the {mode} {body} profile holds "
+                                         f"{lookups} lookups, want "
+                                         f"{RAFT_ITERS * solves}")
+                report_profile(f"raft-profile-{body}-{mode}", "solve", solves,
+                               sum(walls[mode]) / 2, wall, prof)
+        same = np.array_equal(flows["eager"], flows["captured"])
+        print(f"[raft-profile-{body}] " + json.dumps({
+            "bit_equal": same, "first_call_ms": first_ms,
+            "window_solve_ms": {m: [1e3 * w / solves for w in ws]
+                                for m, ws in walls.items()},
+            "graphs_captured": engines["captured"].graphs.captured}),
+            flush=True)
+        if not same:
+            raise AssertionError(f"the captured {body} solve differs from "
+                                 "the eager one")
+    if engines["captured"].graphs.captured != 3:
+        raise AssertionError("graphs captured "
+                             f"{engines['captured'].graphs.captured}, want 3 "
+                             "(one a body)")
+
+
+class PartTimer:
+    """`FilterEngine.timer`: each part of a stage-2 run in a torch.profiler
+    range `stage2.<part>`, the device synchronised at its edges, so its
+    wall time holds the device work it queued; walls summed by part."""
+
+    def __init__(self, device):
+        self.device = device
+        self.wall = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        import torch
+        from torch.profiler import record_function
+
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        try:
+            with record_function(f"stage2.{name}"):
+                yield
+                # inside the range: the part's device work runs within it
+                torch.cuda.synchronize(self.device)
+        finally:
+            self.wall[name] = (self.wall.get(name, 0.0)
+                               + time.perf_counter() - t0)
+
+
+def device_ms_by_range(prof, prefix: str) -> dict:
+    """Device milliseconds of the kernels and copies that run inside each
+    host range named `prefix...` (the ranges synchronise the device at
+    their edges, so the device work of a range runs inside it)."""
+    from torch.autograd import DeviceType
+
+    ranges = [(ev.name, ev.time_range.start, ev.time_range.end)
+              for ev in prof.events()
+              if ev.device_type == DeviceType.CPU and ev.name.startswith(prefix)]
+    out = {name: 0.0 for name, _, _ in ranges}
+    for ev in prof.events():
+        if (ev.device_type != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
+            continue
+        for name, t0, t1 in ranges:
+            if t0 <= ev.time_range.start and ev.time_range.end <= t1:
+                out[name] += ev.time_range.elapsed_us() / 1e3
+                break
+    return out
+
+
+def phase_stage2_profile(device, frames: Path) -> dict:
+    """Where configuration 1's `t_stage2` goes: `FilterEngine.run` on the
+    pipeline phase's 80 frames and stage-1 output (432x768, shipped
+    weights, bf16, as `run_stage2` runs it but returning the refined
+    frames), split by part with `PartTimer`: reader wait, U-Net, refinement,
+    device-to-host copies (the u8 conversions and the returned frames),
+    writer wait, the three mp4 encodes.  Run eagerly (`capture=False`),
+    then captured (a fresh engine: its capture included), then captured
+    again under torch.profiler for each part's device ms and the stage's
+    idle share; the eager and captured refined frames must be bit-equal.
+    Then one span's refinement alone (31 frames), timed eager, captured,
+    captured, eager (wall ms a frame, synchronised), then each profiled
+    (device ms a frame)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deflicker_torch.filter import FilterEngine, load_filter_engine
+    from deflicker_torch.io.media import list_frames, read_image
+    from deflicker_torch.ops.pad import Padder
+
+    style = WORK / "results" / frames.name / "stage_1" / "output"
+    ckpts = [ROOT / "pretrained_weights" / n for n in
+             ("neural_filter.ckpt", "local_refinement_net.ckpt")]
+    captured = load_filter_engine(*ckpts, device=device, dtype=torch.bfloat16)
+    eager = FilterEngine(captured.unet, captured.tnet, device=device,
+                         dtype=torch.bfloat16, capture=False)
+    print(f"[stage2-profile] configuration 1's stage 2: {CLIP[0]} frames "
+          f"{CLIP[1]}x{CLIP[2]}, shipped weights, bf16, span "
+          f"{captured.span}, U-Net batch {captured.batch}; eager, captured, "
+          "captured under the profiler", flush=True)
+    runs, outs = {}, {}
+    for tag, engine in (("eager", eager), ("captured", captured),
+                        ("profiled", captured)):
+        timer = PartTimer(device)
+        engine.timer = timer
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        before = engine.graphs.captured
+        ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+               if tag == "profiled" else contextlib.nullcontext())
+        with ctx as prof:
             t0 = time.time()
-            for _ in range(solves):
-                engine.compute_batch(a, b)
-            torch.cuda.synchronize()
-            wall_plain = time.time() - t0
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.time()
-                for _ in range(solves):
-                    engine.compute_batch(a, b)
-                torch.cuda.synchronize()
-                wall = time.time() - t0
-        report_profile(f"raft-profile-{body}", "solve", solves, wall_plain, wall, prof)
+            outs[tag] = engine.run(frames, style, WORK / "results_s2" / tag)
+            torch.cuda.synchronize(device)
+            wall = time.time() - t0
+        engine.timer = None
+        runs[tag] = {"t_stage2": wall, "parts_s": timer.wall,
+                     "graphs_captured": engine.graphs.captured - before,
+                     "peak_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30}
+        if prof is not None:
+            rows = device_events(prof)
+            busy = sum(r[0] for r in rows) / 1e3
+            runs[tag]["device_ms"] = {k[len("stage2."):]: v for k, v in
+                                      device_ms_by_range(prof, "stage2.").items()}
+            runs[tag]["device_busy_ms"] = busy
+            runs[tag]["device_ms_outside_parts"] = (
+                busy - sum(runs[tag]["device_ms"].values()))
+            runs[tag]["idle_share"] = 1.0 - busy / (1e3 * runs["captured"]["t_stage2"])
+            runs[tag]["device_ops"] = sum(r[1] for r in rows)
+        print(f"[stage2-profile-{tag}] " + json.dumps(runs[tag]), flush=True)
+    same = (np.array_equal(outs["eager"], outs["captured"])
+            and np.array_equal(outs["eager"], outs["profiled"]))
+    if not same or outs["eager"].shape[0] != CLIP[0]:
+        raise AssertionError("captured stage 2 differs from the eager one")
+    if [runs[t]["graphs_captured"] for t in runs] != [0, 1, 0]:
+        raise AssertionError(f"refinement graphs captured {runs}")
+
+    # one span's refinement alone: 31 frames after the first
+    names = list_frames(frames)
+    snames = list_frames(style)
+    H, W = read_image(names[0]).shape[:2]
+    padder = Padder(H, W, divisor=32, mode="other")
+    content, sty = captured._load_span(names, snames, 0, captured.span, H, W)
+    preds = captured._filter_all(content, sty, padder)
+    body, carry = preds[None, 1:], (preds[:1], preds[:1])
+    n = body.shape[1]
+    engines = {"eager": eager, "captured": captured}
+    walls, refined = {"eager": [], "captured": []}, {}
+    for tag in ("eager", "captured", "captured", "eager"):
+        torch.cuda.synchronize(device)
+        t0 = time.time()
+        _, refined[tag] = engines[tag].refine(carry, body, [n])
+        torch.cuda.synchronize(device)
+        walls[tag].append(time.time() - t0)
+    step = {}
+    for tag, engine in engines.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            engine.refine(carry, body, [n])
+            torch.cuda.synchronize(device)
+        rows = device_events(prof)
+        busy = sum(r[0] for r in rows) / 1e3
+        wall = sum(walls[tag]) / 2
+        step[tag] = {"frame_wall_ms": 1e3 * wall / n,
+                     "window_frame_wall_ms": [1e3 * w / n for w in walls[tag]],
+                     "frame_device_ms": busy / n,
+                     "idle_share": 1.0 - busy / (1e3 * wall),
+                     "device_ops_per_frame": sum(r[1] for r in rows) / n}
+    step_same = torch.equal(refined["eager"], refined["captured"])
+    if not step_same:
+        raise AssertionError("the captured refinement step differs")
+    summary = {"bit_equal": same and step_same, "frames": CLIP[0],
+               "refine_span_frames": n, "refine_step": step,
+               "engine_graphs_captured": captured.graphs.captured}
+    print("[stage2-profile] " + json.dumps(summary), flush=True)
+    return runs
 
 
 def main() -> int:
@@ -2446,6 +2684,9 @@ def main() -> int:
     raft_launches = phase_raft_pipeline(device, frames)
     print(f"[raft-pipeline] wall {time.time() - t1:.1f} s", flush=True)
     phase_raft_profile(device, frames)
+    t1 = time.time()
+    phase_stage2_profile(device, frames)
+    print(f"[stage2-profile] wall {time.time() - t1:.1f} s", flush=True)
     t1 = time.time()
     dual_launches, dual_frames, dual_cfg = phase_dual_pipeline(device)
     print(f"[dual-pipeline] wall {time.time() - t1:.1f} s", flush=True)

@@ -13,8 +13,13 @@ CUDA libraries, built and loaded once a process (`ops/cuda/build.load`);
 the stage-1 fit's CUDA graphs (`fit_graphs`, atlas/graphs.py: the
 pretrains' and each loss phase's fit step, kept by the fit's shape, so a
 later job of a shape already seen copies its pack and init params in and
-captures nothing); and the frames and flow of a clip already under
-`<root>/<stem>/`, which are neither decoded nor solved again.
+captures nothing); the RAFT solves' and the refinement steps' CUDA graphs
+(`flow_provider.graphs`, `filter_engine.graphs`, kept by shape in each
+engine's one memory pool: a later job of a shape already solved or
+refined copies its frames into the static buffers and captures nothing);
+and the frames and flow of a clip already under `<root>/<stem>/`, which
+are neither decoded nor solved again.  Each `graphs.captured` counts its
+captures, and dropping the `Deflickerer` frees every pool.
 
 `mesh="auto"` (the default) picks up an initialised `torch.distributed`
 world of several ranks (`torchrun`, parallel/mesh.py): every rank then

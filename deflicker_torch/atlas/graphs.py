@@ -40,6 +40,16 @@ one printed line (`FitGraphs.uncaptured`): on the CPU, under autograd's
 anomaly mode (DEFLICKER_DEBUG_NANS: it syncs at every node of the
 backward), and in the sample-sharded fit (its gradient all-reduce).  A
 capture that fails on the card raises.
+
+The same warm-up, capture, replay and counter accounting (`Graphs`)
+serve the inference engines, the counterparts of the JAX package's jitted
+RAFT solve and its refinement scans (`InferenceGraphs`): a RAFT solve
+(flow/engine.py) and a refinement step (filter/engine.py) are captured
+without a generator, each keyed by what it bakes in.  A key's first call
+runs eagerly (its warm-up, whose result is used) and the key is captured
+straight after it, so every later call of that key, in this job or a
+later one, is one replay.  Inference has no backward, so only the CPU (or
+a caller asking for eager steps) keeps them uncaptured.
 """
 
 from __future__ import annotations
@@ -49,16 +59,24 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..ops.cuda import imlp_kernel
+from ..ops.cuda import corr_kernel, imlp_kernel
 
-# eager steps before a step function is captured
+# eager steps before a fit's step function is captured
 WARMUP_STEPS = 2
+# eager calls before an inference step is captured: it has no optimizer
+# state or generator to settle; its first call loads the kernel library,
+# picks cuDNN's algorithms and sizes cuBLAS's workspace
+WARMUP_CALLS = 1
 # the launch counters a captured step accounts for
-COUNTERS = (imlp_kernel.launches,)
+COUNTERS = (imlp_kernel.launches, corr_kernel.launches)
 # states a kept `FitGraphs` holds: the most one job makes, its fit's and a
 # pretrain's for each of its two mappings (the least recently used goes
 # first: each holds a copy of its pack and its graphs' memory)
 MAX_STATES = 3
+# keys an `InferenceGraphs` keeps: a job's full and tail batch of pairs
+# under two correlation bodies (the least recently used goes first: each
+# holds its static buffers)
+MAX_KEYS = 4
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -76,7 +94,19 @@ def _clone_tree(tree):
              for k, t in layer.items()} for layer in tree]
 
 
-class FitState:
+class GraphState:
+    """Where graphs are captured: the device, the one memory pool of the
+    graphs captured here, and the generator they draw from (None: they
+    draw nothing)."""
+
+    def __init__(self, device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        self.device = device
+        self.generator = generator
+        self.pool = None
+
+
+class FitState(GraphState):
     """What one fit's graphs read, at fixed addresses: `params` (a params
     tree), `optimizer` over its leaves, `generator` (the samples' draws),
     `tensors` (the pack, counters, chunk sums), the step functions by loss
@@ -84,13 +114,11 @@ class FitState:
 
     def __init__(self, params, optimizer, generator: torch.Generator,
                  tensors: Dict[str, torch.Tensor]):
+        super().__init__(_leaves(params)[0].device, generator)
         self.params = params
         self.optimizer = optimizer
-        self.generator = generator
         self.tensors = tensors
         self.steps: Dict[object, "CapturedStep"] = {}
-        self.pool = None
-        self.device = _leaves(params)[0].device
 
     def load(self, params, generator: torch.Generator,
              tensors: Dict[str, torch.Tensor]) -> None:
@@ -114,20 +142,81 @@ class FitState:
             generator.set_state(self.generator.get_state())
 
 
-class FitGraphs:
+class Graphs:
+    """Warm-up, capture and replay of step functions on the card, and the
+    launch counters' accounting (see the module docstring).  `captured`
+    counts the graphs captured.  A CPU test replaces `warm_up`, `_record`
+    and `replay`."""
+
+    def __init__(self):
+        self.captured = 0
+        self._streams: Dict[torch.device, object] = {}
+
+    def _stream(self, device: torch.device):
+        if device not in self._streams:
+            self._streams[device] = torch.cuda.Stream(device)
+        return self._streams[device]
+
+    def warm_up(self, state: GraphState, fn: Callable) -> None:
+        """One eager step on the capture stream."""
+        with torch.cuda.device(state.device):
+            stream = self._stream(state.device)
+            main = torch.cuda.current_stream()
+            stream.wait_stream(main)
+            with torch.cuda.stream(stream):
+                fn()
+            main.wait_stream(stream)
+
+    def _record(self, state: GraphState, fn: Callable):
+        """Capture `fn` into a graph in the state's memory pool, drawing
+        from the state's generator when it has one."""
+        with torch.cuda.device(state.device):
+            if state.pool is None:
+                state.pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            if state.generator is not None:
+                graph.register_generator_state(state.generator)
+            with torch.cuda.graph(graph, pool=state.pool,
+                                  stream=self._stream(state.device)):
+                fn()
+        return graph
+
+    def replay(self, state: GraphState, graph, n: int) -> None:
+        with torch.cuda.device(state.device):
+            for _ in range(n):
+                graph.replay()
+
+    def capture(self, state: GraphState, fn: Callable
+                ) -> Tuple[object, List[Tuple[dict, dict]]]:
+        """(graph, per-counter launches of one step).  The launches the
+        wrappers counted while capturing are taken back: capture launches
+        nothing."""
+        before = [dict(c) for c in COUNTERS]
+        graph = self._record(state, fn)
+        counts = []
+        for c, b in zip(COUNTERS, before):
+            delta = {k: c[k] - b[k] for k in c if c[k] != b[k]}
+            for k, v in delta.items():
+                c[k] -= v
+            if delta:
+                counts.append((c, delta))
+        self.captured += 1
+        return graph, counts
+
+
+class FitGraphs(Graphs):
     """The CUDA graphs of stage-1 fits and pretrains on one process (see
     the module docstring).  `keep=False`: the graphs of one fit.
     `keep=True`: states kept by the fit's shape across fits, at most
     `MAX_STATES` of them.  `eager=True` captures
     nothing (the eager fit that the card's tests and chip_smoke compare the
-    captured one with).  `captured` counts the graphs captured."""
+    captured one with)."""
 
     def __init__(self, keep: bool = False, eager: bool = False):
+        super().__init__()
         self.keep = keep
         self.eager = eager
         self.states: "OrderedDict[tuple, FitState]" = OrderedDict()
-        self.captured = 0
-        self._streams: Dict[torch.device, object] = {}
 
     # -- when to capture --------------------------------------------------
     def uncaptured(self, device: torch.device,
@@ -178,84 +267,81 @@ class FitGraphs:
             self.states.popitem(last=False)
         return st
 
-    # -- the CUDA side (a CPU test replaces these three) -----------------
-    def _stream(self, device: torch.device):
-        if device not in self._streams:
-            self._streams[device] = torch.cuda.Stream(device)
-        return self._streams[device]
-
-    def warm_up(self, state: FitState, fn: Callable) -> None:
-        """One eager step on the capture stream."""
-        with torch.cuda.device(state.device):
-            stream = self._stream(state.device)
-            main = torch.cuda.current_stream()
-            stream.wait_stream(main)
-            with torch.cuda.stream(stream):
-                fn()
-            main.wait_stream(stream)
-
-    def _record(self, state: FitState, fn: Callable):
-        """Capture `fn` into a graph drawing from the state's generator, in
-        the state's memory pool."""
-        with torch.cuda.device(state.device):
-            if state.pool is None:
-                state.pool = torch.cuda.graph_pool_handle()
-            graph = torch.cuda.CUDAGraph()
-            graph.register_generator_state(state.generator)
-            with torch.cuda.graph(graph, pool=state.pool,
-                                  stream=self._stream(state.device)):
-                fn()
-        return graph
-
-    def replay(self, state: FitState, graph, n: int) -> None:
-        with torch.cuda.device(state.device):
-            for _ in range(n):
-                graph.replay()
-
-    def capture(self, state: FitState, fn: Callable
-                ) -> Tuple[object, List[Tuple[dict, dict]]]:
-        """(graph, per-counter launches of one step).  The launches the
-        wrappers counted while capturing are taken back: capture launches
-        nothing."""
-        before = [dict(c) for c in COUNTERS]
-        graph = self._record(state, fn)
-        counts = []
-        for c, b in zip(COUNTERS, before):
-            delta = {k: c[k] - b[k] for k in c if c[k] != b[k]}
-            for k, v in delta.items():
-                c[k] -= v
-            counts.append((c, delta))
-        self.captured += 1
-        return graph, counts
-
-
 class CapturedStep:
     """A step function run n steps at a time (see the module docstring).
-    `run` takes the `FitGraphs` and the `FitState` whose `steps` hold this
-    one rather than keeping them, so that no reference cycle outlives a
-    fit: with `graphs` None the steps run eagerly, else warm-up steps, one
-    capture, then replays, in the state's graphs."""
+    `run` takes the `Graphs` and the state whose graphs hold this one
+    rather than keeping them, so that no reference cycle outlives a fit:
+    with `graphs` None the steps run eagerly, else `warmup` eager steps,
+    one capture, then replays, in the state's graphs."""
 
-    def __init__(self, step: Callable):
+    def __init__(self, step: Callable, warmup: int = WARMUP_STEPS):
         self.step = step
+        self.warmup = warmup
         self.graph = None
         self.warm = 0
         self.counts: List[Tuple[dict, dict]] = []
 
-    def run(self, g: Optional[FitGraphs], state: FitState, n: int) -> None:
+    def run(self, g: Optional[Graphs], state: GraphState, n: int) -> None:
         if g is None:
             for _ in range(n):
                 self.step()
             return
-        while n > 0 and self.graph is None:
-            if self.warm < WARMUP_STEPS:
-                g.warm_up(state, self.step)
-                self.warm += 1
-                n -= 1
-            else:
-                self.graph, self.counts = g.capture(state, self.step)
+        while n > 0 and self.warm < self.warmup:
+            g.warm_up(state, self.step)
+            self.warm += 1
+            n -= 1
         if n > 0:
+            self.ensure_captured(g, state)
             g.replay(state, self.graph, n)
             for counters, delta in self.counts:
                 for k, v in delta.items():
                     counters[k] += v * n
+
+    def ensure_captured(self, g: Graphs, state: GraphState) -> None:
+        """Capture the step once its warm-up steps have run (capture runs
+        nothing)."""
+        if self.graph is None and self.warm >= self.warmup:
+            self.graph, self.counts = g.capture(state, self.step)
+
+
+class InferenceGraphs(Graphs):
+    """The captured steps of one inference engine on `device`, by the key
+    of what each bakes in (`entry`), at most `MAX_KEYS` of them, the least
+    recently used going first; all in one memory pool.  A step reads and
+    writes only static buffers allocated outside its capture and leaves
+    nothing alive in the pool, so the graphs can share the pool and replay
+    in any order (one at a time, in stream order).  `capture` None means
+    on the card; uncaptured, `what` says so and why on one printed line."""
+
+    def __init__(self, device: torch.device, what: str,
+                 capture: Optional[bool] = None):
+        super().__init__()
+        self.state = GraphState(torch.device(device))
+        self.entries: "OrderedDict[tuple, object]" = OrderedDict()
+        if capture is None:
+            capture = self.state.device.type == "cuda"
+        self.enabled = capture
+        if not capture:
+            reason = ("the CPU has no CUDA graphs"
+                      if self.state.device.type != "cuda"
+                      else "the caller asked for it")
+            print(f"[deflicker_torch] {what} run uncaptured: {reason}",
+                  flush=True)
+
+    def entry(self, key: tuple, make: Callable):
+        """The entry (static buffers and a `CapturedStep` as `.step`) of
+        `key`, made by `make()` the first time."""
+        e = self.entries.get(key)
+        if e is None:
+            e = self.entries[key] = make()
+            while len(self.entries) > MAX_KEYS:
+                self.entries.popitem(last=False)
+        else:
+            self.entries.move_to_end(key)
+        return e
+
+    def run(self, step: CapturedStep, n: int = 1) -> None:
+        """`step` n times: its first call eagerly, then captured at once
+        (used or not in this call), then replays."""
+        step.run(self, self.state, n)
+        step.ensure_captured(self, self.state)

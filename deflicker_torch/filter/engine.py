@@ -19,6 +19,16 @@ to NCHW for the modules.  `run` streams one video; `run_multi` streams
 several same-resolution videos in lockstep (`refine_span_multi`), each
 video's carry frozen at its own last frame.
 
+On the card a refinement step is one CUDA graph (atlas/graphs.py), the
+counterpart of a step of the JAX package's refinement scans: it reads
+frame t of a static span buffer and the carry from static buffers, writes
+O_t, and freezes a video's carry past its last real frame by comparing a
+step counter that the graph advances with the span's `n_valid`, both on
+the device.  One graph per (V, padded H, padded W, dtype) is kept for the
+engine's life, replayed once a frame; the U-Net stays eager (a few large
+batches a span).  `refine_span` and `refine_span_multi` are the eager
+functions the captured step is held to.
+
 With a mesh (parallel/mesh.py) every rank runs `run` / `run_multi` alike:
 each span's U-Net frames split over the ranks and are gathered, the
 refinement of one video runs on every rank (it is sequential), the
@@ -34,8 +44,9 @@ Output contract (identical to the reference):
 
 from __future__ import annotations
 
+import contextlib
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -136,10 +147,69 @@ def refine_span_multi(tnet: TransformNet,
     return (o_prev, p_prev), torch.stack(outs, dim=1)
 
 
+def refine_sequence_multi(tnet: TransformNet, preds: torch.Tensor,
+                          dtype=torch.float32) -> torch.Tensor:
+    """The whole recurrence for V videos in lockstep (the JAX package's
+    `refine_sequence_multi`): O_0 = P_0 for each video, then
+    `refine_span_multi` over frames 1..T-1.  preds: (V, T, H, W, 3)
+    filtered frames.  Returns (V, T, H, W, 3) refined."""
+    V, T = preds.shape[:2]
+    if T == 1:
+        return preds.clone()
+    p0 = preds[:, 0]
+    _, rest = refine_span_multi(tnet, (p0, p0), preds[:, 1:], [T - 1] * V,
+                                dtype)
+    return torch.cat([p0[:, None], rest], dim=1)
+
+
+class _Refiner:
+    """A captured refinement step's static buffers for V videos of padded
+    size Hp x Wp: the span of filtered frames (V, S, Hp, Wp, 3) it reads,
+    the refined span it writes, the carry (O_{t-1}, P_{t-1}), the step
+    counter t and the span's `n_valid` (V,), all on the device."""
+
+    def __init__(self, tnet, V, S, Hp, Wp, dtype, device):
+        from ..atlas.graphs import WARMUP_CALLS, CapturedStep
+
+        span, out = (torch.empty((V, S, Hp, Wp, 3), device=device)
+                     for _ in range(2))
+        o_prev, p_prev = (torch.empty((V, Hp, Wp, 3), device=device)
+                          for _ in range(2))
+        t = torch.zeros((1,), dtype=torch.int64, device=device)
+        n_valid = torch.zeros((V,), dtype=torch.int64, device=device)
+
+        def step():
+            # refine_span_multi's step, with frame t read on the device
+            with torch.no_grad():
+                p_t = span.index_select(1, t)[:, 0]
+                inp = torch.cat([p_t, o_prev, p_t, p_prev], dim=-1)
+                o_t = p_t + _nhwc(tnet(_nchw(inp.to(dtype)))).float()
+                out.index_copy_(1, t, o_t[:, None])
+                keep = (t < n_valid)[:, None, None, None]
+                o_prev.copy_(torch.where(keep, o_t, o_prev))
+                p_prev.copy_(torch.where(keep, p_t, p_prev))
+                t.add_(1)
+
+        self.span, self.out, self.t, self.n_valid = span, out, t, n_valid
+        self.carry = (o_prev, p_prev)
+        self.step = CapturedStep(step, WARMUP_CALLS)
+
+
 class FilterEngine:
+    """Stage 2 on `device` (see the module docstring).  On the card each
+    refinement step is a CUDA graph (`graphs`, an `InferenceGraphs`);
+    `capture=False` refines eagerly there (the comparison the card's tests
+    and chip_smoke make).  `timer`, when set, is called with a part's name
+    ("read_wait", "unet", "refine", "d2h", "write_wait", "encode") and
+    returns the context manager that part of `run` runs in (chip_smoke's
+    stage-2 profile)."""
+
     def __init__(self, unet: UNet, tnet: TransformNet, device="cuda",
                  dtype=torch.float32, batch: int = 16, span: int = 32,
-                 unpad: str = "crop", mesh: Optional[Mesh] = None):
+                 unpad: str = "crop", mesh: Optional[Mesh] = None,
+                 capture: Optional[bool] = None):
+        from ..atlas.graphs import InferenceGraphs
+
         if unpad not in ("crop", "resize"):
             raise ValueError(f"unpad must be 'crop' or 'resize', got {unpad!r}")
         self.mesh = mesh
@@ -151,6 +221,35 @@ class FilterEngine:
         self.batch = batch
         self.span = max(2, span)
         self.unpad = unpad
+        self.graphs = InferenceGraphs(self.device, "refinement steps",
+                                      capture)
+        self.timer: Optional[Callable[[str], object]] = None
+
+    def _part(self, name: str):
+        return (self.timer(name) if self.timer is not None
+                else contextlib.nullcontext())
+
+    def refine(self, carry: Tuple[torch.Tensor, torch.Tensor],
+               body: torch.Tensor, n_valid) -> Tuple[tuple, torch.Tensor]:
+        """`refine_span_multi` on the engine's device: carry (V, Hp, Wp, 3)
+        x2, body (V, n, Hp, Wp, 3) with n <= `span`, `n_valid` V ints.  On
+        the card the step graph of this shape replays once a frame; the
+        carry it returns is its static buffers (pass them back as the next
+        span's carry)."""
+        if not self.graphs.enabled:
+            return refine_span_multi(self.tnet, carry, body, n_valid,
+                                     self.dtype)
+        V, n, Hp, Wp, _ = body.shape
+        e = self.graphs.entry((V, Hp, Wp, self.dtype), lambda: _Refiner(
+            self.tnet, V, self.span, Hp, Wp, self.dtype, self.device))
+        for mine, theirs in zip(e.carry, carry):
+            if mine is not theirs:
+                mine.copy_(theirs)
+        e.span[:, :n].copy_(body)
+        e.n_valid.copy_(torch.as_tensor(n_valid, dtype=torch.int64))
+        e.t.zero_()
+        self.graphs.run(e.step, n)
+        return e.carry, e.out[:, :n].clone()
 
     @staticmethod
     def _read_u8(path):
@@ -254,44 +353,52 @@ class FilterEngine:
                                 *spans[0], H, W)
             carry = None
             for k, (s0, s1) in enumerate(spans):
-                content, style = nxt.result()
+                with self._part("read_wait"):
+                    content, style = nxt.result()
                 if k + 1 < len(spans):
                     nxt = reader.submit(self._load_span, content_names,
                                         style_names, *spans[k + 1], H, W)
-                preds = self._filter_all(content, style, padder)
+                with self._part("unet"):
+                    preds = self._filter_all(content, style, padder)
                 if carry is None:
                     # O_0 = P_0; the recurrence starts at frame 1 with carry
                     # (P_0, P_0) (neural_filter_and_refinement.py:99)
-                    carry = (preds[0], preds[0])
+                    carry = (preds[:1], preds[:1])
                     body, offset = preds[1:], 1
                 else:
                     body, offset = preds, 0
                 nb = int(body.shape[0])
                 if nb:
-                    carry, refined = refine_span(self.tnet, carry, body, nb,
-                                                 self.dtype)
+                    with self._part("refine"):
+                        carry, refined = self.refine(carry, body[None], [nb])
+                    refined = refined[0]
                 else:
                     refined = body
                 if offset:
                     refined = torch.cat([preds[:1], refined], dim=0)
                 if is_main(self.mesh):
-                    preds_u8 = _to_u8(preds)
-                    refined_u8 = _to_u8(refined)
-                    while len(pending) > 2:       # ~2 spans in flight at most
-                        pending.pop(0).result()
+                    with self._part("d2h"):
+                        preds_u8 = _to_u8(preds)
+                        refined_u8 = _to_u8(refined)
+                    with self._part("write_wait"):
+                        while len(pending) > 2:   # ~2 spans in flight at most
+                            pending.pop(0).result()
                     pending.append(writer.submit(
                         self._write_span, s0, content, style, preds_u8,
                         refined_u8, results_dir, save_concat, (W, H), padder))
                 if return_output:
-                    outputs.append(refined.cpu().numpy())
-            for f in pending:
-                f.result()
+                    with self._part("d2h"):
+                        outputs.append(refined.cpu().numpy())
+            with self._part("write_wait"):
+                for f in pending:
+                    f.result()
         finally:
             reader.shutdown(wait=False)
             writer.shutdown(wait=True)
 
         if is_main(self.mesh):
-            self._write_videos(results_dir, save_concat, fps)
+            with self._part("encode"):
+                self._write_videos(results_dir, save_concat, fps)
         barrier(self.mesh)
         return np.concatenate(outputs, axis=0) if return_output else None
 
@@ -383,8 +490,7 @@ class FilterEngine:
                 if nb:
                     # each video's real frames of this span's body
                     nv = np.clip(np.asarray(Ts[lo:hi]) - (s0 + offset), 0, nb)
-                    carry, refined = refine_span_multi(self.tnet, carry, body,
-                                                       nv, self.dtype)
+                    carry, refined = self.refine(carry, body, nv)
                 else:
                     refined = body
                 refined = shard_constraint(refined, vmesh, 0, V)

@@ -12,7 +12,12 @@ src/models/stage_1/raft_wrapper.py), as the JAX package runs it:
   * with a mesh (parallel/mesh.py) each batch of pairs splits over the
     ranks and is gathered (the JAX package pads the batch to a multiple of
     the devices; here a rank's block may be one pair shorter), and only
-    rank 0 writes the cache.
+    rank 0 writes the cache;
+  * on the card a solve is one CUDA graph (atlas/graphs.py), the
+    counterpart of the JAX package's one jitted `raft_flow` program: the
+    normalisation, fnet, cnet, the pyramid, the GRU iterations and the
+    upsample, from static padded images to a static `flow_up`, replayed
+    once a batch of a shape already solved.
 """
 
 from __future__ import annotations
@@ -54,16 +59,46 @@ def load_flow_image(path: str | Path, max_long_edge: int = 2000) -> np.ndarray:
     return img
 
 
+class _Solve:
+    """A captured solve's static buffers: the padded images it reads and
+    the `flow_up` it writes."""
+
+    def __init__(self, model, B, Hp, Wp, iters, dtype, corr_mode, device):
+        from ..atlas.graphs import WARMUP_CALLS, CapturedStep
+        from ..models.raft import raft_flow
+
+        x1, x2 = (torch.empty((B, Hp, Wp, 3), device=device)
+                  for _ in range(2))
+        out = torch.empty((B, Hp, Wp, 2), device=device)
+
+        def solve():
+            out.copy_(raft_flow(model, x1, x2, iters=iters, dtype=dtype,
+                                corr_mode=corr_mode)[1])
+
+        self.x1, self.x2, self.out = x1, x2, out
+        self.step = CapturedStep(solve, WARMUP_CALLS)
+
+
 class RAFTFlow:
     """RAFT-based provider (the reference's RAFTWrapper role) on `device`
     (CUDA unless the caller names another; raises without CUDA).  With
     `mesh` (on its rank's device) every rank calls `compute_batch` with the
-    same pairs, solves its block of them and gets them all back."""
+    same pairs, solves its block of them and gets them all back.
+
+    On the card each solve is a CUDA graph (`graphs`, an
+    `InferenceGraphs`), keyed by what it bakes in: the batch, the padded
+    size, dtype, iterations, the correlation mode and body.  A key's first
+    batch is solved eagerly and the key is captured right after it, so a
+    shape seen once (a run's tail batch) costs one capture it never
+    replays.  `capture=False` solves eagerly on the card (the comparison
+    the card's tests and chip_smoke make)."""
 
     def __init__(self, checkpoint: Optional[str | Path] = None,
                  model=None, iters: int = 20, dtype=torch.bfloat16,
                  device=None, corr_mode: str = "auto",
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None,
+                 capture: Optional[bool] = None):
+        from ..atlas.graphs import InferenceGraphs
         from .convert import load_raft_checkpoint
 
         self.mesh = mesh
@@ -81,30 +116,57 @@ class RAFTFlow:
         self.iters = iters
         self.dtype = dtype
         self.corr_mode = corr_mode
+        self.graphs = InferenceGraphs(self.device, "RAFT solves", capture)
+        self._said_empty = False
+
+    def _solve(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        """flow_up of padded images on the device: `raft_flow`, or its
+        captured solve."""
+        from ..models.raft import _select_corr_mode, raft_flow
+        from ..ops.cuda.corr_kernel import select_body
+
+        if not self.graphs.enabled:
+            return raft_flow(self.model, x1, x2, iters=self.iters,
+                             dtype=self.dtype, corr_mode=self.corr_mode)[1]
+        B, Hp, Wp, _ = x1.shape
+        mode = _select_corr_mode(self.corr_mode, self.device, B,
+                                 (Hp // 8) * (Wp // 8))
+        # the body is read once a solve: a switch selects another graph
+        body = select_body() if mode == "kernel" else None
+        key = (B, Hp, Wp, self.dtype, self.iters, mode, body)
+        e = self.graphs.entry(key, lambda: _Solve(
+            self.model, B, Hp, Wp, self.iters, self.dtype, mode, self.device))
+        e.x1.copy_(x1)
+        e.x2.copy_(x2)
+        self.graphs.run(e.step)
+        return e.out
+
+    def _upload(self, im: torch.Tensor) -> torch.Tensor:
+        """Frames onto the device as float.  In bf16 they are rounded to
+        whole levels in [0, 255]: they originate as uint8 PNGs, and the
+        INTER_AREA-resize fractional parts are below bf16 conv noise.  The
+        rounding runs on the device, where it costs less than numpy's
+        passes over the batch on the host."""
+        x = im.to(self.device).float()    # on the CPU: the caller's array
+        if self.dtype == torch.bfloat16:
+            x = x.round().clamp_(0, 255)
+        return x
 
     def compute_batch(self, im1: np.ndarray, im2: np.ndarray) -> np.ndarray:
         """Flow for a batch of pairs: (B, H, W, 3) x2 in [0,255] -> (B, H, W, 2)."""
-        from ..models.raft import raft_flow
 
         B, H, W, _ = im1.shape
-        if self.dtype == torch.bfloat16:
-            # frames originate as uint8 PNGs and the INTER_AREA-resize
-            # fractional parts are below bf16 conv noise: uploading uint8
-            # quarters the host-to-device bytes
-            im1 = np.clip(np.round(im1), 0, 255).astype(np.uint8)
-            im2 = np.clip(np.round(im2), 0, 255).astype(np.uint8)
         padder = Padder(H, W, divisor=8, mode="sintel")
-        # edge replication is exact in any dtype; pad as float, since
-        # replicate padding takes no integer tensors
         im1 = batch_sharding(torch.from_numpy(im1), self.mesh)
         im2 = batch_sharding(torch.from_numpy(im2), self.mesh)
         if im1.shape[0]:
-            x1 = padder.pad(im1.to(self.device).float())
-            x2 = padder.pad(im2.to(self.device).float())
-            _, flow_up = raft_flow(self.model, x1, x2, iters=self.iters,
-                                   dtype=self.dtype, corr_mode=self.corr_mode)
-            flow = padder.unpad(flow_up)
+            x1, x2 = (padder.pad(self._upload(im)) for im in (im1, im2))
+            flow = padder.unpad(self._solve(x1, x2))
         else:           # more ranks than pairs: this rank solves none
+            if not self._said_empty:
+                print("[deflicker_torch] RAFT solves run uncaptured: this "
+                      "rank's block of pairs is empty", flush=True)
+                self._said_empty = True
             flow = torch.zeros((0, H, W, 2), device=self.device)
         return shard_constraint(flow, self.mesh, 0, B).cpu().numpy()
 

@@ -1046,3 +1046,66 @@ def test_captured_fit_under_the_profiler(cuda_device):
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert sum("chain_fwd_kernel" in n for n in names) >= 2 * 12, len(names)
+
+
+# ---------------------------------------------------------------------------
+# the RAFT solve and the refinement step as CUDA graphs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("body", ["band", "shared", "resident"])
+def test_captured_solve_is_bit_equal_to_raft_flow(body, cuda_device,
+                                                  monkeypatch):
+    """`RAFTFlow.compute_batch` on the card (bf16, 20 iterations, 3 pairs x
+    2 directions at 96x128) under each correlation body: the first solve
+    eager, then the capture, then replays; every flow equals the eager
+    `raft_flow` of the same batch bit for bit, and after the capture the
+    body's lookups read 20 a replay (none counted by the capture)."""
+    from deflicker_torch.flow import RAFTFlow
+
+    monkeypatch.delenv("DEFLICKER_CORR_SHARED", raising=False)
+    monkeypatch.delenv("DEFLICKER_CORR_RESIDENT", raising=False)
+    if body != "band":
+        monkeypatch.setenv(f"DEFLICKER_CORR_{body.upper()}", "1")
+    model = traft.raft_init(torch.Generator().manual_seed(0))
+    eng = RAFTFlow(model=model, device=cuda_device)
+    rng = np.random.default_rng(2)
+    key = {"band": "lookup", "shared": "lookup_shared",
+           "resident": "lookup_resident"}[body]
+    for n in range(4):
+        a = rng.integers(0, 256, (6, 96, 128, 3)).astype(np.float32)
+        b = np.roll(a, 3, axis=2)
+        C.reset_launches()
+        got = eng.compute_batch(a, b)
+        torch.cuda.synchronize()
+        assert C.launches[key] == 20 and eng.graphs.captured == 1
+        _, want = traft.raft_flow(eng.model, torch.from_numpy(a).to(cuda_device),
+                                  torch.from_numpy(b).to(cuda_device),
+                                  dtype=torch.bfloat16)
+        np.testing.assert_array_equal(got, want.cpu().numpy())
+    C.reset_launches()
+
+
+@pytest.mark.parametrize("V", [1, 2])
+def test_captured_refinement_is_bit_equal_to_the_eager_one(V, cuda_device):
+    """`FilterEngine.refine` on the card (bf16, span 4) over spans of 4, 4
+    and a ragged 2 frames, with V = 2 one video ending inside the second
+    span: refined frames and carries bit-equal to `refine_span_multi`; one
+    graph, captured after the first frame."""
+    from deflicker_torch.filter import engine as F
+    from deflicker_torch.models import transformnet_init, unet_init
+
+    gen = torch.Generator().manual_seed(2)
+    eng = F.FilterEngine(unet_init(gen), transformnet_init(gen),
+                         device=cuda_device, dtype=torch.bfloat16, span=4)
+    frames = torch.rand((V, 10, 64, 96, 3), generator=gen).to(cuda_device)
+    lengths = [10, 6][:V]
+    carry = ref = (frames[:, 0], frames[:, 0])
+    for s0, s1 in ((0, 4), (4, 8), (8, 10)):
+        body = frames[:, s0:s1]
+        nv = [int(np.clip(L - s0, 0, s1 - s0)) for L in lengths]
+        carry, got = eng.refine(carry, body, nv)
+        ref, want = F.refine_span_multi(eng.tnet, ref, body, nv,
+                                        torch.bfloat16)
+        assert torch.equal(got, want)
+        assert all(torch.equal(x, y) for x, y in zip(carry, ref))
+    assert eng.graphs.captured == 1
