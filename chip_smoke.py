@@ -91,24 +91,32 @@ Phases (any failure exits non-zero before the result line):
  14. stage-2 training: `cli.train_stage2.main` at the published widths and
      the JAX CLI's defaults (UNet 32 features, TransformNet nf 32 with 5
      blocks, 128x128, batch 8, clips 2 x 6, lr 2e-4 constant, bf16, seed
-     0), only the schedule cut (200 filter and 100 refiner steps, chunks
-     of 25); no chain or lookup kernel may launch.  Every chunk's losses
-     finite, each net's last chunk below its first, the checkpoints loaded
-     by `load_filter_engine` and run by `cli.stage2.main` on the serve
-     phase's second clip; steps/s, then 20 filter and 10 refiner steps
-     under torch.profiler; then held-out quality of the shipped weights on
-     8 procedural clips of 12x128x128 (`filter_frames`, `refine_sequence`):
-     filtered PSNR at least input + 10 dB, refined temporal error below
-     the input's;
+     0) with the serve phase's second clip as texture bank, only the
+     schedule cut (200 filter and 100 refiner steps, chunks of 25); no
+     chain or lookup kernel may launch, and each net's steps must be one
+     CUDA graph a clip kind: two captures, two warm-up steps a kind, every
+     other step one replay.  Every chunk's losses finite, each net's last
+     chunk below its first, the checkpoints loaded by `load_filter_engine`
+     and run by `cli.stage2.main` on the serve phase's second clip;
+     steps/s; then each net captured against eager (`FitGraphs(eager=
+     True)`) from one seed and bank, three chunks of 20 filter or 10
+     refiner steps a route (warm-up and captures, timed, under
+     torch.profiler), params bit-equal after them, each route's wall and
+     device ms a step, idle share, device ops, steps/s and graphs; then
+     held-out quality of the shipped weights on 8 procedural clips of
+     12x128x128 (`filter_frames`, `refine_sequence`): filtered PSNR at
+     least input + 10 dB, refined temporal error below the input's;
  15. parallel (`deflicker_torch.parallel` on the one card): first the chain
      pairs at one rank's shapes (5,000 and 2,500 samples a step: 2 and 4
      ranks) and the band lookup at one rank's block of a pair batch (4 and
      3 directions), each against its plain twin; (a) the sharded fit at
      world size 1 under NCCL (configuration 1's data at 108x192, default
-     widths and batch, 100 steps after 10 pretrain sweeps) bit-equal to the
-     unsharded fit from the same seed, both timed after 5 warm-up steps
-     each (cuBLAS, NCCL's communicator), the all-reduce of the fit's
-     gradients timed alone, and 20 steps of each under torch.profiler, and
+     widths and batch, 100 steps after 10 pretrain sweeps), captured as
+     CUDA graphs and eager, bit-equal to the captured unsharded fit from
+     the same seed, all three timed after 5 warm-up steps (cuBLAS, NCCL's
+     communicator), the all-reduce of the fit's gradients timed alone, and
+     20 steps of each way under torch.profiler (the all-reduce's device
+     ms inside the captured step's graph), and
      how far Adam's first update moves when one draw's gradient is summed
      from two halves and when it comes from half the draw; (b) configuration 1's pipeline on two
      ranks sharing the card under gloo (`parallel.launch`; NCCL refuses two
@@ -129,9 +137,11 @@ queued behind a sleep kernel, so no host work is inside the events);
 `call_ms` beside a kernel's is one call from an idle device, the wrapper's
 host work included, as earlier versions of this script timed every kernel.
 Each pipeline phase zeroes the launch counters just before it and reads
-them just after.  The fits and pretrains of every phase run as CUDA graphs
-(deflicker_torch/atlas/graphs.py) except the sample-sharded fits of phase
-15, and a replayed step counts its launches as an eager one does.  The second-to-last line is the kernel table as JSON, the
+them just after.  The fits and pretrains of every phase, and phase 14's
+training steps, run as CUDA graphs (deflicker_torch/atlas/graphs.py)
+except the sample-sharded fits under gloo (phase 15b) and the eager runs
+they are compared with, and a replayed step counts its launches as an
+eager one does.  The second-to-last line is the kernel table as JSON, the
 last line {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
 device.
 """
@@ -193,6 +203,7 @@ TRAIN_SHAPE = {"size": 128, "batch": 8, "clip_len": 6, "clip_batch": 2}  # the C
 TRAIN_FILTER_STEPS = 200    # stage-2 training: filter steps (CLI default 4000)
 TRAIN_REFINE_STEPS = 100    # refiner steps (CLI default 1500)
 TRAIN_PER_CALL = 25         # steps a chunk (CLI default 50)
+TRAIN_WINDOW = {"filter": 20, "refiner": 10}  # steps a window, captured vs eager
 HELDOUT = (8, 12, 128, 128)  # held-out clips x frames x height x width
 HELDOUT_SEED = 10_000       # their generator's seed (no training stream uses it)
 SLEEP_CYCLES = 4_000_000    # cuda_ms's sleep kernel: about 2 ms at the H100's clocks
@@ -1778,44 +1789,141 @@ def temporal_err(x, clip) -> float:
     return float(np.mean(errs))
 
 
+@contextlib.contextmanager
+def counted_graphs():
+    """Every warm-up step, capture and replay of the `Graphs` machinery
+    (deflicker_torch/atlas/graphs.py) counted by graph state, in the order
+    the states first appear: {"states": [{"warm_ups", "captured",
+    "replays"}, ...]}."""
+    from deflicker_torch.atlas import graphs
+
+    counts, by_state = {"states": []}, {}
+    real = {k: getattr(graphs.Graphs, k)
+            for k in ("warm_up", "capture", "replay")}
+
+    def mine(state):
+        if id(state) not in by_state:
+            by_state[id(state)] = {"warm_ups": 0, "captured": 0, "replays": 0}
+            counts["states"].append(by_state[id(state)])
+        return by_state[id(state)]
+
+    def warm_up(self, state, fn):
+        mine(state)["warm_ups"] += 1
+        return real["warm_up"](self, state, fn)
+
+    def capture(self, state, fn):
+        mine(state)["captured"] += 1
+        return real["capture"](self, state, fn)
+
+    def replay(self, state, graph, n):
+        mine(state)["replays"] += n
+        return real["replay"](self, state, graph, n)
+
+    for k, fn in (("warm_up", warm_up), ("capture", capture),
+                  ("replay", replay)):
+        setattr(graphs.Graphs, k, fn)
+    try:
+        yield counts
+    finally:
+        for k, fn in real.items():
+            setattr(graphs.Graphs, k, fn)
+
+
+def train_routes(device, cfg, bank, unet) -> dict:
+    """Each net's training captured (its own `FitGraphs`) and eager
+    (`FitGraphs(eager=True)`) from one seed and one texture bank, so both
+    clip kinds occur: three chunks of `TRAIN_WINDOW[net]` steps a route,
+    the first with the warm-up steps and captures, the second timed, the
+    third under torch.profiler (`report_profile`); the params of the two
+    routes must be bit-equal after them.  The refiner trains against
+    `unet`.  Returns each net's steps/s, graphs captured and agreement."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deflicker_torch.atlas.graphs import FitGraphs
+    from deflicker_torch.train.stage2_trainer import train_filter, train_refiner
+
+    out = {}
+    for net, n in TRAIN_WINDOW.items():
+        c = dataclasses.replace(cfg, filter_steps=3 * n, refine_steps=3 * n,
+                                steps_per_call=n)
+        states = {}
+        for route in ("eager", "captured"):
+            graphs = FitGraphs(eager=route == "eager")
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            marks = []
+
+            def log(name, step, rec):
+                marks.append(time.perf_counter())
+                if len(marks) == 2:
+                    prof.start()
+                    marks.append(time.perf_counter())
+                elif len(marks) == 4:
+                    prof.stop()
+
+            torch.cuda.synchronize()
+            if net == "filter":
+                model, _ = train_filter(c, 3, log, bank, device, graphs)
+            else:
+                model, _ = train_refiner(c, 3, unet, log, bank, device, graphs)
+            wall_plain, wall = marks[1] - marks[0], marks[3] - marks[2]
+            report_profile(f"train-profile-{net}-{route}", "step", n,
+                           wall_plain, wall, prof)
+            states[route] = model.state_dict()
+            out[f"{net}_{route}_steps_per_s"] = n / wall_plain
+            out[f"{net}_{route}_graphs_captured"] = graphs.captured
+        same = all(torch.equal(a, b) for a, b in zip(
+            states["eager"].values(), states["captured"].values()))
+        out[f"{net}_steps"] = 3 * n
+        out[f"{net}_params_bit_equal"] = same
+        if not same:
+            raise AssertionError(f"captured {net} training differs from eager")
+        if out[f"{net}_captured_graphs_captured"] != 2:
+            raise AssertionError(f"{net} training captured "
+                                 f"{out[f'{net}_captured_graphs_captured']} graphs")
+    return out
+
+
 def phase_train(device) -> dict:
-    """Stage-2 training on the card through `cli.train_stage2.main`, its
-    checkpoints run by `cli.stage2`, a profile of its steps, and the
-    held-out quality of the shipped weights."""
+    """Stage-2 training on the card through `cli.train_stage2.main` (one
+    CUDA graph a net and clip kind, counted), its checkpoints run by
+    `cli.stage2`, captured training against eager with both routes'
+    profiles, and the held-out quality of the shipped weights."""
     import io
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from deflicker_torch.cli import stage2, train_stage2
     from deflicker_torch.filter import (filter_frames, load_filter_engine,
                                         refine_sequence)
     from deflicker_torch.io.media import list_frames, read_image
     from deflicker_torch.metrics import psnr
-    from deflicker_torch.models import transformnet_init, unet_init
-    from deflicker_torch.train.stage2_trainer import (TrainConfig, _ClipSource,
-                                                      _filter_loss,
-                                                      _make_optimizer,
-                                                      _refiner_loss, _step)
+    from deflicker_torch.models import unet_init
+    from deflicker_torch.train import TrainConfig
+    from deflicker_torch.train.synth import load_texture_bank
     from deflicker_torch.train.synth import make_clip as synth_clip
 
     out_dir = WORK / "train"
     shutil.rmtree(out_dir, ignore_errors=True)
+    textures = WORK / "data_serve" / "clipb"
     shape = [a for k, v in TRAIN_SHAPE.items() for a in (f"--{k}", str(v))]
     args = ["--out_dir", str(out_dir), *shape, "--lr", "2e-4",
             "--lr_schedule", "constant", "--dtype", "bfloat16", "--seed", "0",
             "--filter_steps", str(TRAIN_FILTER_STEPS),
             "--refine_steps", str(TRAIN_REFINE_STEPS),
-            "--steps_per_call", str(TRAIN_PER_CALL)]
+            "--steps_per_call", str(TRAIN_PER_CALL),
+            "--texture_dir", str(textures)]
     print(f"[train] cli.train_stage2 on {device}: UNet(6, 3, 32), "
           f"TransformNet(32, 5), {' '.join(shape)}, lr 2e-4 constant, bf16, "
-          "seed 0; cut: filter_steps 4000 -> "
+          "seed 0, the serve phase's clip B as texture bank (texture_mix "
+          "0.5); cut: filter_steps 4000 -> "
           f"{TRAIN_FILTER_STEPS}, refine_steps 1500 -> {TRAIN_REFINE_STEPS}, "
           f"steps_per_call 50 -> {TRAIN_PER_CALL}", flush=True)
     buf = io.StringIO()
     reset_counters()
     t0 = time.time()
-    with contextlib.redirect_stdout(buf):
+    with counted_graphs() as graph_counts, contextlib.redirect_stdout(buf):
         train_stage2.main(args, device=None)
     torch.cuda.synchronize()
     t_train = time.time() - t0
@@ -1824,11 +1932,21 @@ def phase_train(device) -> dict:
     if any(launches.values()):
         raise AssertionError(f"training launched chain or lookup kernels: "
                              f"{launches}")
+    # one graph a net and clip kind; every step after a kind's two warm-up
+    # steps is one replay
+    nets = graph_counts["states"]
+    for counts, steps in zip(nets, (TRAIN_FILTER_STEPS, TRAIN_REFINE_STEPS)):
+        if not (counts["captured"] == 2 and counts["warm_ups"] == 4
+                and counts["warm_ups"] + counts["replays"] == steps):
+            raise AssertionError(f"training graphs {graph_counts}")
+    if len(nets) != 2:
+        raise AssertionError(f"training graph states {graph_counts}")
 
     # the run: finite chunks, each net's last chunk below its first
     rows = [json.loads(line) for line in
             (out_dir / "scalars.jsonl").read_text().splitlines()]
-    summary = {"t_train_s": t_train}
+    summary = {"t_train_s": t_train, "graphs": dict(zip(("filter", "refiner"),
+                                                        nets))}
     for net, steps, keys in (("filter", TRAIN_FILTER_STEPS, ("rec", "grad")),
                              ("refiner", TRAIN_REFINE_STEPS, ("rec", "temp"))):
         r = [x for x in rows if x["net"] == net]
@@ -1842,7 +1960,7 @@ def phase_train(device) -> dict:
                                  f"{[x['total'] for x in r]}")
         summary[f"{net}_total_first_last"] = [r[0]["total"], r[-1]["total"]]
     # steps/s from the CLI's chunk lines, the first chunk of each net left
-    # out (cuDNN's first calls, the filter checkpoint's write)
+    # out (its warm-up steps and captures, the filter checkpoint's write)
     for net in ("filter", "refiner"):
         rates = [float(line.rsplit("(", 1)[1].split()[0])
                  for line in buf.getvalue().splitlines()
@@ -1868,38 +1986,16 @@ def phase_train(device) -> dict:
     summary["stage2_cli_frames"] = len(final)
     print("[train] " + json.dumps(summary), flush=True)
 
-    # profile: 20 filter and 10 refiner steps of the same configuration
+    # captured against eager, both nets, with each route's profile
     size = TRAIN_SHAPE["size"]
     cfg = TrainConfig(height=size, width=size, batch=TRAIN_SHAPE["batch"],
                       clip_len=TRAIN_SHAPE["clip_len"],
                       clip_batch=TRAIN_SHAPE["clip_batch"], dtype="bfloat16")
-    gen = torch.Generator().manual_seed(0)
-    unet = unet_init(gen).to(device)
-    tnet = transformnet_init(gen).to(device)
-    for tag, net, n, B, T, loss in (
-            ("train-profile-filter", unet, 20, cfg.batch, 1,
-             lambda batch: _filter_loss(unet, batch, cfg)),
-            ("train-profile-refiner", tnet, 10, cfg.clip_batch, cfg.clip_len,
-             lambda batch: _refiner_loss(tnet, unet, batch, cfg))):
-        opt = _make_optimizer(net, cfg)
-        clips = _ClipSource(cfg, None, 0, device)
-
-        def steps(k):
-            for _ in range(k):
-                batch = clips(B, T)
-                _step(opt, cfg.learning_rate, lambda: loss(batch))
-            torch.cuda.synchronize()
-
-        steps(3)
-        t0 = time.time()
-        steps(n)
-        wall_plain = time.time() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            steps(n)
-            wall = time.time() - t0
-        report_profile(tag, "step", n, wall_plain, wall, prof)
+    bank = load_texture_bank(textures, 2 * size, 2 * size)
+    routes = train_routes(device, cfg, bank,
+                          unet_init(torch.Generator().manual_seed(0)).to(device))
+    print("[train-graphs] " + json.dumps(routes), flush=True)
+    summary.update(routes)
 
     # held-out quality of the shipped weights (bench_e2e.bench_trained_stage2)
     n_clips, T, H, W = HELDOUT
@@ -2029,8 +2125,9 @@ def first_loss(results: Path) -> float:
 
 def phase_parallel(device, frames: Path, raft_flow: Path) -> dict:
     """deflicker_torch.parallel on the one card: (a) the sharded fit at
-    world size 1 under NCCL against the unsharded fit, bit for bit, and the
-    gradient all-reduce's device time; (b) configuration 1's pipeline on
+    world size 1 under NCCL, captured and eager, against the captured
+    unsharded fit, bit for bit, with each way's it/s and profile and the
+    gradient all-reduce's device time inside the captured step; (b) configuration 1's pipeline on
     two ranks sharing the card under gloo (RAFT pairs, fit samples, render
     frames and U-Net frames split), each rank's launches held to its share,
     its RAFT flow against `raft_flow` (one rank's solve of `frames` with
@@ -2044,6 +2141,7 @@ def phase_parallel(device, frames: Path, raft_flow: Path) -> dict:
     from deflicker_torch.atlas import (build_specs, fit_atlas, init_models,
                                        load_video_data, pretrain_mapping)
     from deflicker_torch.atlas.engine import flat_params
+    from deflicker_torch.atlas.graphs import FitGraphs
     from deflicker_torch.cli.pipeline import run_pipeline
     from deflicker_torch.config import AtlasConfig, PipelineConfig
     from deflicker_torch.io.media import list_frames
@@ -2073,9 +2171,10 @@ def phase_parallel(device, frames: Path, raft_flow: Path) -> dict:
                      torch.Generator(device).manual_seed(1), T, H, W,
                      cfg.uv_mapping_scale, PRETRAIN_PAR)
 
-    def fit(m, steps, profiled=False):
-        """`steps` fit steps from the pretrained params and seed 2:
-        (params, it/s, launches)."""
+    def fit(m, steps, graphs=None):
+        """`steps` fit steps from the pretrained params and seed 2 through
+        `graphs` (None: the fit's own, captured): (params, it/s,
+        launches)."""
         p = {k: [{kk: vv.detach().clone().requires_grad_()
                   for kk, vv in layer.items()} for layer in v]
              for k, v in params.items()}
@@ -2084,43 +2183,78 @@ def phase_parallel(device, frames: Path, raft_flow: Path) -> dict:
         torch.cuda.synchronize()
         t0 = time.time()
         fit_atlas(p, specs, data, c, torch.Generator(device).manual_seed(2),
-                  mesh=m)
+                  mesh=m, graphs=graphs)
         torch.cuda.synchronize()
         return p, steps / (time.time() - t0), read_counters()
 
+    # the runs: unsharded and sharded captured, sharded eager
+    ways = (("unsharded", False), ("sharded", False), ("sharded-eager", True))
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
                             world_size=1, rank=0)
     try:
         mesh = make_mesh()
+        mesh_of = {"unsharded": None, "sharded": mesh, "sharded-eager": mesh}
         for m in (None, mesh):       # first calls: cuBLAS, NCCL's communicator
             fit(m, 5)
-        runs = {name: fit(m, ITERS_PAR)
-                for name, m in (("unsharded", None), ("sharded", mesh))}
+        with counted_graphs() as graph_counts:
+            runs = {name: fit(mesh_of[name], ITERS_PAR,
+                              FitGraphs(eager=eager)) for name, eager in ways}
         for name, (_, _, launches) in runs.items():
             if launches["fwd"] != 2 * ITERS_PAR or launches["bwd"] != 2 * ITERS_PAR:
                 raise AssertionError(f"{name} fit launched {launches}")
-        same = all(torch.equal(a, b) for a, b in zip(
-            flat_params(runs["unsharded"][0]), flat_params(runs["sharded"][0])))
-        if not same:
-            raise AssertionError("world-1 sharded fit differs from the unsharded fit")
+        # one capture a loss phase for each captured way, none eager
+        if [c["captured"] for c in graph_counts["states"]] != [2, 2]:
+            raise AssertionError(f"world-1 fit graphs {graph_counts}")
+        same = {name: all(torch.equal(a, b) for a, b in zip(
+            flat_params(runs["unsharded"][0]), flat_params(runs[name][0])))
+            for name in ("sharded", "sharded-eager")}
+        if not all(same.values()):
+            raise AssertionError(f"world-1 sharded fits against the "
+                                 f"unsharded fit, bit-equal: {same}")
         grads = [torch.randn_like(q) for q in flat_params(runs["sharded"][0])]
         flat = torch.cat([g.reshape(-1) for g in grads])
         world1 = {
-            "backend": mesh.backend, "params_bit_equal": same,
-            "unsharded_it_s": runs["unsharded"][1], "sharded_it_s": runs["sharded"][1],
+            "backend": mesh.backend,
+            "params_bit_equal": {f"{k}_vs_unsharded": v for k, v in same.items()},
+            **{f"{name.replace('-', '_')}_it_s": runs[name][1]
+               for name, _ in ways},
+            "graphs": dict(zip(("unsharded", "sharded"),
+                               graph_counts["states"])),
             "grad_floats": int(flat.numel()),
             "grad_reduce_ms": cuda_ms(lambda: all_reduce_sum(grads, mesh)),
             "all_reduce_ms": cuda_ms(lambda: dist.all_reduce(flat)),
             "first_update_rel": first_update_spread(params, specs, data, cfg,
                                                     device)}
-        # where a step's time goes, unsharded and sharded (20 steps each)
-        for name, m in (("unsharded", None), ("sharded", mesh)):
-            wall_plain = PROFILE_PAR / fit(m, PROFILE_PAR)[1]
+        # where a step's time goes (20 steps each way, after 20 that capture
+        # the kept graphs)
+        per_step = {}
+        for name, eager in ways:
+            kept = FitGraphs(keep=True, eager=eager)
+            fit(mesh_of[name], PROFILE_PAR, kept)
+            wall_plain = PROFILE_PAR / fit(mesh_of[name], PROFILE_PAR, kept)[1]
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                wall = PROFILE_PAR / fit(m, PROFILE_PAR)[1]
+                wall = PROFILE_PAR / fit(mesh_of[name], PROFILE_PAR, kept)[1]
             report_profile(f"parallel-profile-{name}", "step", PROFILE_PAR,
                            wall_plain, wall, prof)
+            per_step[name] = {k: (us / 1e3 / PROFILE_PAR, n / PROFILE_PAR)
+                              for us, n, k in device_events(prof)}
+        # the gradient all-reduce inside the captured sharded step: NCCL's
+        # kernels, and every device op a step the sharded graph runs more
+        # often than the unsharded one (the flat buffer's cat, the copies
+        # back), with their device ms
+        shd, uns = per_step["sharded"], per_step["unsharded"]
+        extra = {k: [shd.get(k, (0.0, 0.0))[0] - uns.get(k, (0.0, 0.0))[0],
+                     shd.get(k, (0.0, 0.0))[1] - uns.get(k, (0.0, 0.0))[1]]
+                 for k in shd.keys() | uns.keys()
+                 if shd.get(k, (0, 0))[1] != uns.get(k, (0, 0))[1]}
+        world1["captured_all_reduce"] = {
+            "nccl_device_ms_per_step": sum(
+                v[0] for k, v in shd.items() if "nccl" in k.lower()),
+            "nccl_kernels_per_step": sum(
+                v[1] for k, v in shd.items() if "nccl" in k.lower()),
+            "extra_device_ms_per_step": sum(v[0] for v in extra.values()),
+            "extra_ops_per_step": {k[:80]: v for k, v in extra.items()}}
     finally:
         dist.destroy_process_group()
     print("[parallel] world 1, NCCL: " + json.dumps(world1), flush=True)

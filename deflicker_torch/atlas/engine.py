@@ -415,11 +415,14 @@ def make_fit_step(loss_fn: Callable, params: Params,
     one row each (made at the first step, zeroed by the caller at each
     chunk's start).  With `mesh` (the sample-sharded fit) the terms are
     this block's shares of the whole batch's loss and the gradients are
-    summed over the ranks; that step cannot be captured."""
+    summed over the ranks by one all-reduce of a flat buffer made here,
+    outside any capture; under NCCL that step is captured like the rest."""
     device = packed.device
     T, H, W = packed.shape[-4:-1]
     flat = flat_params(params)
     sums: Dict[str, object] = {}
+    buf = (None if mesh is None
+           else torch.empty(sum(p.numel() for p in flat), device=device))
 
     def step():
         j = torch.randint(0, W, shape, generator=generator, device=device)
@@ -441,7 +444,7 @@ def make_fit_step(loss_fn: Callable, params: Params,
         optimizer.zero_grad(set_to_none=True)
         total.sum().backward()
         if mesh is not None:
-            all_reduce_sum([p.grad for p in flat], mesh)
+            all_reduce_sum([p.grad for p in flat], mesh, buf)
         optimizer.step()
         sums["vals"].add_(vals)
 
@@ -531,7 +534,8 @@ def run_fit_schedule(params: Params, specs: AtlasSpecs, data: VideoData,
     params are broadcast once, each step's gradients are summed over the
     ranks by one all-reduce of all of them, and each chunk's loss sums by
     one more, so every rank logs, evaluates and raises alike (only rank 0
-    writes the rescue file); its steps run eagerly.  The multi-video fit
+    writes the rescue file); its steps are captured under NCCL and run
+    eagerly under gloo.  The multi-video fit
     shards the video axis: `n_videos` counts the videos of all ranks,
     `params` and `packed` hold this rank's block of them, and no
     collective runs in a step (each chunk's records are gathered at its
@@ -542,7 +546,8 @@ def run_fit_schedule(params: Params, specs: AtlasSpecs, data: VideoData,
     if sample_sharded:
         replicated(flat_params(params), mesh)
     graphs = graphs or FitGraphs()
-    capture = graphs.capturing(device, "fit", sample_sharded)
+    capture = graphs.capturing(device, "fit",
+                               mesh.backend if sample_sharded else None)
     shape = ((cfg.samples_batch,) if n_videos is None
              else (n_videos, cfg.samples_batch))
     lo, hi = block(shape[0], mesh)    # this rank's samples, or videos

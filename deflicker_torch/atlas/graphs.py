@@ -35,11 +35,25 @@ dispatched ops:
     no state refers back to the `FitGraphs`, so dropping it frees every
     state's pack, params and graph pool at once.
 
-Where a step cannot be captured it runs eagerly, and the fit says why on
-one printed line (`FitGraphs.uncaptured`): on the CPU, under autograd's
+The same `FitGraphs` serve stage-2 training (train/stage2_trainer.py),
+the counterpart of the JAX package's scanned `_filter_chunk` and
+`_refiner_chunk`: a run's state holds its net's params, their fused
+capturable Adam, the LR as a 0-d device tensor the host fills before each
+step, the clip source's device generator and bank indices, and one step
+function a clip kind (image bank, Fourier clips).  The host's coin picks
+the kind before each step, so the two graphs replay in the coin's order,
+one memory pool and one generator between them; each kind pays its own
+warm-up the first time the coin picks it.  A run's graphs go with the run.
+
+The sample-sharded fit's step, with its gradient all-reduce, is captured
+under NCCL: the warm-up steps make NCCL's communicator, and the collective
+is recorded on the capture stream like any kernel.
+
+Where a step cannot be captured it runs eagerly, and the run says why on
+one line to stderr (`FitGraphs.uncaptured`): on the CPU, under autograd's
 anomaly mode (DEFLICKER_DEBUG_NANS: it syncs at every node of the
-backward), and in the sample-sharded fit (its gradient all-reduce).  A
-capture that fails on the card raises.
+backward), and in the sample-sharded fit under gloo (which stages the
+all-reduce through the host).  A capture that fails on the card raises.
 
 The same warm-up, capture, replay and counter accounting (`Graphs`)
 serve the inference engines, the counterparts of the JAX package's jitted
@@ -54,6 +68,7 @@ a caller asking for eager steps) keeps them uncaptured.
 
 from __future__ import annotations
 
+import sys
 from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -77,6 +92,13 @@ MAX_STATES = 3
 # under two correlation bodies (the least recently used goes first: each
 # holds its static buffers)
 MAX_KEYS = 4
+
+
+def say_uncaptured(what: str, reason: str) -> None:
+    """The one line an uncaptured run prints, to stderr (a diagnostic: the
+    CLIs' stdout carries their results)."""
+    print(f"[deflicker_torch] {what} run uncaptured: {reason}",
+          file=sys.stderr, flush=True)
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -205,8 +227,9 @@ class Graphs:
 
 
 class FitGraphs(Graphs):
-    """The CUDA graphs of stage-1 fits and pretrains on one process (see
-    the module docstring).  `keep=False`: the graphs of one fit.
+    """The CUDA graphs of stage-1 fits and pretrains, and of stage-2
+    training runs, on one process (see the module docstring).
+    `keep=False`: the graphs of one fit.
     `keep=True`: states kept by the fit's shape across fits, at most
     `MAX_STATES` of them.  `eager=True` captures
     nothing (the eager fit that the card's tests and chip_smoke compare the
@@ -220,27 +243,28 @@ class FitGraphs(Graphs):
 
     # -- when to capture --------------------------------------------------
     def uncaptured(self, device: torch.device,
-                   sharded: bool = False) -> Optional[str]:
-        """Why a fit on `device` cannot be captured; None when it can."""
+                   backend: Optional[str] = None) -> Optional[str]:
+        """Why steps on `device` cannot be captured; None when they can.
+        `backend`: the sample-sharded fit's process group backend (None:
+        no collective in the step)."""
         if device.type != "cuda":
             return "the CPU has no CUDA graphs"
         if torch.is_anomaly_enabled():
             return ("autograd's anomaly mode (DEFLICKER_DEBUG_NANS) syncs at "
                     "every node of the backward")
-        if sharded:
-            return ("the sample-sharded fit all-reduces its gradients in "
-                    "every step")
+        if backend not in (None, "nccl"):
+            return (f"{backend} stages the sample-sharded fit's gradient "
+                    "all-reduce through the host")
         return None
 
     def capturing(self, device: torch.device, what: str,
-                  sharded: bool = False) -> bool:
-        """Whether `what` (a fit, a pretrain) is captured.  An uncaptured
-        run says so and why on one line."""
+                  backend: Optional[str] = None) -> bool:
+        """Whether `what` (a fit, a pretrain, a training run) is captured.
+        An uncaptured run says so and why on one line."""
         reason = ("the caller asked for it" if self.eager
-                  else self.uncaptured(device, sharded))
+                  else self.uncaptured(device, backend))
         if reason is not None:
-            print(f"[deflicker_torch] {what} steps run uncaptured: {reason}",
-                  flush=True)
+            say_uncaptured(f"{what} steps", reason)
         return reason is None
 
     # -- states -----------------------------------------------------------
@@ -322,11 +346,9 @@ class InferenceGraphs(Graphs):
             capture = self.state.device.type == "cuda"
         self.enabled = capture
         if not capture:
-            reason = ("the CPU has no CUDA graphs"
-                      if self.state.device.type != "cuda"
-                      else "the caller asked for it")
-            print(f"[deflicker_torch] {what} run uncaptured: {reason}",
-                  flush=True)
+            say_uncaptured(what, "the CPU has no CUDA graphs"
+                           if self.state.device.type != "cuda"
+                           else "the caller asked for it")
 
     def entry(self, key: tuple, make: Callable):
         """The entry (static buffers and a `CapturedStep` as `.step`) of

@@ -164,8 +164,10 @@ class RAFTFlow:
             flow = padder.unpad(self._solve(x1, x2))
         else:           # more ranks than pairs: this rank solves none
             if not self._said_empty:
-                print("[deflicker_torch] RAFT solves run uncaptured: this "
-                      "rank's block of pairs is empty", flush=True)
+                from ..atlas.graphs import say_uncaptured
+
+                say_uncaptured("RAFT solves",
+                               "this rank's block of pairs is empty")
                 self._said_empty = True
             flow = torch.zeros((0, H, W, 2), device=self.device)
         return shard_constraint(flow, self.mesh, 0, B).cpu().numpy()

@@ -127,13 +127,16 @@ def _run(op: Callable, x: torch.Tensor, mesh: Mesh) -> None:
 
 
 @torch.no_grad()
-def _flat(op: Callable, xs: Tensors, mesh: Mesh) -> Tensors:
+def _flat(op: Callable, xs: Tensors, mesh: Mesh,
+          buf: Optional[torch.Tensor] = None) -> Tensors:
     """`op` on one tensor, or on a list of tensors of one dtype and device
-    as ONE flat buffer (one collective), written back in place."""
+    as ONE flat buffer (one collective), written back in place.  `buf`: a
+    buffer of their total size to hold them (a captured step's, made
+    outside its capture); None, a new one."""
     if isinstance(xs, torch.Tensor):
         _run(op, xs, mesh)
         return xs
-    buf = torch.cat([x.reshape(-1) for x in xs])
+    buf = torch.cat([x.reshape(-1) for x in xs], out=buf)
     _run(op, buf, mesh)
     for x, part in zip(xs, buf.split([x.numel() for x in xs])):
         x.copy_(part.view_as(x))
@@ -179,13 +182,15 @@ def replicated(xs: Tensors, mesh: Optional[Mesh]) -> Tensors:
         t, dist.get_global_rank(group, 0), group=group), xs, mesh)
 
 
-def all_reduce_sum(xs: Tensors, mesh: Optional[Mesh]) -> Tensors:
+def all_reduce_sum(xs: Tensors, mesh: Optional[Mesh],
+                   buf: Optional[torch.Tensor] = None) -> Tensors:
     """The sum over the ranks, in place (one all-reduce for a list of
-    tensors of one dtype).  Runs whenever the mesh has a process group,
-    also at size 1, where it leaves the values as they are."""
+    tensors of one dtype, staged in `buf` when given).  Runs whenever the
+    mesh has a process group, also at size 1, where it leaves the values as
+    they are."""
     if mesh is None or mesh.group is None:
         return xs
-    return _flat(dist.all_reduce, xs, mesh)
+    return _flat(dist.all_reduce, xs, mesh, buf)
 
 
 def barrier(mesh: Optional[Mesh]) -> None:

@@ -11,14 +11,21 @@ The JAX package's `train/stage2_trainer.py`, with the same objectives:
            differentiated through O_{t-1}.
 
 Adam (betas 0.9 / 0.999, eps 1e-8: optax.adam's update, m_hat / (sqrt(v_hat)
-+ eps)) at a constant LR or optax's warmup-cosine schedule, evaluated at the
-0-based step count before each update.  `dtype="bfloat16"` runs the convs
-under `torch.autocast(bfloat16)` from f32 master params, as flax's
-`dtype=bf16` computes its convs; the losses are taken in f32.  Steps run in
-chunks of `steps_per_call`: the losses accumulate on the device and are read
-back once a chunk.  Each step's clips come from a device generator; the
-per-step coin (image bank or Fourier clips) and the bank indices come from a
-CPU generator, so no step reads the device.
++ eps); on the card the fused capturable one) at a constant LR or optax's
+warmup-cosine schedule, evaluated at the 0-based step count before each
+update.  `dtype="bfloat16"` runs the convs under `torch.autocast(bfloat16)`
+from f32 master params, as flax's `dtype=bf16` computes its convs; the
+losses are taken in f32.  Steps run in chunks of `steps_per_call`: the
+losses accumulate on the device and are read back once a chunk.  Each
+step's clips come from a device generator; the per-step coin (image bank or
+Fourier clips) and the bank indices come from a CPU generator, so no step
+reads the device.
+
+A step is a function over fixed tensors (`make_train_step`), one a clip
+kind, the counterpart of the JAX package's scanned `_filter_chunk` and
+`_refiner_chunk`: on the card each is captured as a CUDA graph after two
+eager warm-up steps (atlas/graphs.py), and the host's part of a step is
+the coin, the bank indices' copy, the LR's fill and one replay.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..atlas.engine import _adam
+from ..atlas.graphs import CapturedStep, FitGraphs, GraphState
 from ..filter.engine import _nchw, _nhwc
 from ..models.refine import TransformNet, transformnet_init
 from ..models.unet import UNet, unet_init
@@ -90,8 +99,9 @@ def lr_schedule(cfg: TrainConfig, total_steps: int) -> Callable[[int], float]:
 
 
 def _make_optimizer(net: torch.nn.Module, cfg: TrainConfig) -> torch.optim.Adam:
-    return torch.optim.Adam(net.parameters(), lr=cfg.learning_rate,
-                            betas=(0.9, 0.999), eps=1e-8)
+    """Adam over the net's params: the fit's (`atlas.engine._adam`), fused
+    and capturable on the card."""
+    return _adam(net.parameters(), cfg.learning_rate)
 
 
 def _autocast(cfg: TrainConfig, device: torch.device):
@@ -150,8 +160,9 @@ def _refiner_loss(tnet: TransformNet, unet: UNet, clips: Clip,
     return rec + cfg.temporal_weight * temp, {"rec": rec, "temp": temp}
 
 
-def _step(opt: torch.optim.Optimizer, lr: float, loss_fn) -> Dict[str, torch.Tensor]:
-    """One Adam update at `lr`; the losses stay on the device."""
+def _step(opt: torch.optim.Optimizer, lr, loss_fn) -> Dict[str, torch.Tensor]:
+    """One Adam update at `lr` (a float, or the device tensor a training
+    run fills before each step); the losses stay on the device."""
     opt.zero_grad(set_to_none=True)
     total, aux = loss_fn()
     total.backward()
@@ -166,39 +177,76 @@ def _seeds(seed: int, n: int) -> List[int]:
 
 
 class _ClipSource:
-    """Each step's clips: B clips from the image bank with probability
-    `cfg.texture_mix` (all of one step's clips one kind), else Fourier
-    clips; drawn on the device from `seed`'s data stream, the coin and the
-    bank indices from its CPU stream."""
+    """Each step's B clips of T frames: from the image bank with
+    probability `cfg.texture_mix` (all of one step's clips one kind), else
+    Fourier clips; drawn on the device from `seed`'s data stream, the coin
+    and the bank indices from its CPU stream.  `next_kind` draws the coin
+    on the host, `draw` makes the clips of a kind on the device."""
 
     def __init__(self, cfg: TrainConfig, bank: Optional[torch.Tensor],
-                 seed: int, device: torch.device):
+                 seed: int, device: torch.device, B: int, T: int):
         data_seed, pick_seed = _seeds(seed, 2)
-        self.cfg = cfg
-        self.bank = bank
+        self.cfg, self.bank, self.B, self.T = cfg, bank, B, T
         self.gen = torch.Generator(device).manual_seed(data_seed)
         self.pick = torch.Generator().manual_seed(pick_seed)
+        # the bank indices of an image step, at a fixed address
+        self.idx = (None if bank is None
+                    else torch.zeros(B, dtype=torch.int64, device=device))
+
+    def next_kind(self) -> bool:
+        """Whether the next step takes image clips: its coin, then for an
+        image step its bank indices, copied into `idx` (on the card from
+        pinned memory, without waiting for the device)."""
+        coin = float(torch.rand((), generator=self.pick))
+        if self.bank is None or coin >= self.cfg.texture_mix:
+            return False
+        idx = torch.randint(0, self.bank.shape[0], (self.B,),
+                            generator=self.pick)
+        if self.idx.is_cuda:
+            idx = idx.pin_memory()
+        self.idx.copy_(idx, non_blocking=True)
+        return True
 
     @torch.no_grad()
-    def __call__(self, B: int, T: int) -> Clip:
+    def draw(self, image: bool) -> Clip:
         cfg = self.cfg
-        coin = float(torch.rand((), generator=self.pick))
-        textures = None
-        if self.bank is not None and coin < cfg.texture_mix:
-            idx = torch.randint(0, self.bank.shape[0], (B,), generator=self.pick)
-            textures = torch.stack([self.bank[i] for i in idx.tolist()])
-        d = draw_clips(self.gen, B, T, cfg.height, cfg.width,
-                       image=textures is not None, p_layer=cfg.p_layer,
+        textures = self.bank.index_select(0, self.idx) if image else None
+        d = draw_clips(self.gen, self.B, self.T, cfg.height, cfg.width,
+                       image=image, p_layer=cfg.p_layer,
                        corr_flicker=cfg.corr_flicker)
         return build_clips(d, cfg.height, cfg.width, textures=textures)
 
 
-def _run(step_fn, total_steps: int, per_call: int, name: str,
+def make_train_step(opt: torch.optim.Optimizer, lr: torch.Tensor,
+                    loss_fn: Callable, clips: _ClipSource, image: bool,
+                    sums: Dict[str, object]) -> Callable[[], None]:
+    """One training step of one clip kind over fixed tensors, a step of the
+    JAX package's scanned chunks: draw the clips (`clips.draw(image)`), run
+    `loss_fn(clips)` (autocast entered inside it), its backward and Adam at
+    `lr` (a device tensor), and add `total` and the aux terms into the
+    chunk sums in place: `sums` holds "keys", the terms in order, and
+    "vals", their sums (made at a run's first step, shared by both kinds'
+    steps, zeroed by `_run` at each chunk's start)."""
+
+    def step():
+        batch = clips.draw(image)
+        terms = _step(opt, lr, lambda: loss_fn(batch))
+        if not sums:
+            sums["keys"] = list(terms)
+            sums["vals"] = torch.zeros(len(terms), device=lr.device)
+        sums["vals"].add_(torch.stack(list(terms.values())))
+
+    return step
+
+
+def _run(step_fn: Callable[[int], None], sums: Dict[str, object],
+         total_steps: int, per_call: int, name: str,
          log_callback: Optional[LogCallback], dtype: str) -> List[Dict]:
-    """`total_steps` calls of step_fn(step) in chunks of `per_call`; each
-    chunk's mean losses are read back once and must be finite.  In f32,
-    cuDNN takes deterministic algorithms here: its choices otherwise made
-    two runs of one seed differ (its bf16 ones do not)."""
+    """`total_steps` calls of step_fn(step) in chunks of `per_call`, each
+    adding its terms into `sums` (`make_train_step`); each chunk's mean
+    losses are read back once and must be finite.  In f32, cuDNN takes
+    deterministic algorithms here (captures included): its choices
+    otherwise made two runs of one seed differ (its bf16 ones do not)."""
     logs = []
     done = 0
     cudnn = torch.backends.cudnn
@@ -207,14 +255,13 @@ def _run(step_fn, total_steps: int, per_call: int, name: str,
     try:
         while done < total_steps:
             n = min(per_call, total_steps - done)
-            sums = None
-            for i in range(n):
-                aux = step_fn(done + i)
-                sums = aux if sums is None else {k: sums[k] + v
-                                                 for k, v in aux.items()}
+            if sums:
+                sums["vals"].zero_()
+            for k in range(done, done + n):
+                step_fn(k)
             done += n
-            means = (torch.stack(list(sums.values())) / n).tolist()
-            rec = dict(zip(sums.keys(), means))
+            means = (sums["vals"] / n).tolist()
+            rec = dict(zip(sums["keys"], means))
             if not all(np.isfinite(v) for v in means):
                 raise FloatingPointError(
                     f"non-finite {name} loss at step {done}: {rec}")
@@ -224,6 +271,41 @@ def _run(step_fn, total_steps: int, per_call: int, name: str,
     finally:
         cudnn.deterministic = deterministic
     return logs
+
+
+def _train(net: torch.nn.Module, loss_fn: Callable, cfg: TrainConfig,
+           clips: _ClipSource, total_steps: int, name: str,
+           log_callback: Optional[LogCallback],
+           graphs: Optional[FitGraphs]) -> List[Dict]:
+    """`total_steps` Adam steps of `net` on `loss_fn(clips)`.  The run's
+    state lies at fixed addresses: the net's params, its Adam, the LR (a
+    0-d device tensor the host fills with the schedule's value before each
+    step), the clip source (its device generator, the bank indices) and
+    the chunk sums.  Each clip kind has one step function
+    (`make_train_step`); on the card each is captured after its own two
+    eager warm-up steps, in one memory pool drawing from the one generator,
+    and replayed in the coin's order; else it runs eagerly and the run
+    says why on one line.  `graphs`: a `FitGraphs` (one with `eager=True`
+    captures nothing); None, this run's own.  Nothing outlives the run."""
+    device = clips.gen.device
+    opt = _make_optimizer(net, cfg)
+    lr = torch.zeros((), device=device)
+    sched = lr_schedule(cfg, total_steps)
+    graphs = graphs or FitGraphs()
+    capture = graphs.capturing(device, f"{name} training")
+    state = GraphState(device, clips.gen)
+    sums: Dict[str, object] = {}
+    steps = {image: CapturedStep(make_train_step(opt, lr, loss_fn, clips,
+                                                 image, sums))
+             for image in (False, True)}
+
+    def step(k):
+        image = clips.next_kind()
+        lr.fill_(sched(k))
+        steps[image].run(graphs if capture else None, state, 1)
+
+    return _run(step, sums, total_steps, cfg.steps_per_call, name,
+                log_callback, cfg.dtype)
 
 
 def _prep_bank(cfg: TrainConfig, texture_bank, device):
@@ -237,34 +319,30 @@ def _prep_bank(cfg: TrainConfig, texture_bank, device):
 
 def train_filter(cfg: TrainConfig, seed: int,
                  log_callback: Optional[LogCallback] = None,
-                 texture_bank=None, device=None) -> Tuple[UNet, List[Dict]]:
+                 texture_bank=None, device=None,
+                 graphs: Optional[FitGraphs] = None) -> Tuple[UNet, List[Dict]]:
     """Train the UNet neural filter; returns (unet, logs).  `texture_bank`:
-    an optional (N, th, tw, 3) f32 image bank (synth.load_texture_bank)."""
+    an optional (N, th, tw, 3) f32 image bank (synth.load_texture_bank).
+    `graphs`: as in `_train` (on the card, one CUDA graph a clip kind)."""
     from ..utils.device import resolve_device
 
     device = resolve_device(device)
     bank, cfg = _prep_bank(cfg, texture_bank, device)
     init_seed, data_seed = _seeds(seed, 2)
     unet = unet_init(torch.Generator().manual_seed(init_seed)).to(device)
-    opt = _make_optimizer(unet, cfg)
-    sched = lr_schedule(cfg, cfg.filter_steps)
-    clips = _ClipSource(cfg, bank, data_seed, device)
-
-    def step(k):
-        batch = clips(cfg.batch, 1)
-        return _step(opt, sched(k), lambda: _filter_loss(unet, batch, cfg))
-
-    logs = _run(step, cfg.filter_steps, cfg.steps_per_call, "filter",
-                log_callback, cfg.dtype)
+    clips = _ClipSource(cfg, bank, data_seed, device, cfg.batch, 1)
+    logs = _train(unet, lambda batch: _filter_loss(unet, batch, cfg), cfg,
+                  clips, cfg.filter_steps, "filter", log_callback, graphs)
     return unet, logs
 
 
 def train_refiner(cfg: TrainConfig, seed: int, unet: UNet,
                   log_callback: Optional[LogCallback] = None,
-                  texture_bank=None, device=None
+                  texture_bank=None, device=None,
+                  graphs: Optional[FitGraphs] = None
                   ) -> Tuple[TransformNet, List[Dict]]:
     """Train the refinement net through the inference recurrence (the UNet
-    frozen); returns (tnet, logs)."""
+    frozen); returns (tnet, logs).  `graphs`: as in `train_filter`."""
     from ..utils.device import resolve_device
 
     device = resolve_device(device)
@@ -272,17 +350,11 @@ def train_refiner(cfg: TrainConfig, seed: int, unet: UNet,
     init_seed, data_seed = _seeds(seed, 2)
     tnet = transformnet_init(torch.Generator().manual_seed(init_seed)).to(device)
     unet = unet.to(device)
-    opt = _make_optimizer(tnet, cfg)
-    sched = lr_schedule(cfg, cfg.refine_steps)
-    clips = _ClipSource(cfg, bank, data_seed, device)
-
-    def step(k):
-        batch = clips(cfg.clip_batch, cfg.clip_len)
-        return _step(opt, sched(k),
-                     lambda: _refiner_loss(tnet, unet, batch, cfg))
-
-    logs = _run(step, cfg.refine_steps, cfg.steps_per_call, "refiner",
-                log_callback, cfg.dtype)
+    clips = _ClipSource(cfg, bank, data_seed, device, cfg.clip_batch,
+                        cfg.clip_len)
+    logs = _train(tnet, lambda batch: _refiner_loss(tnet, unet, batch, cfg),
+                  cfg, clips, cfg.refine_steps, "refiner", log_callback,
+                  graphs)
     return tnet, logs
 
 

@@ -1,4 +1,5 @@
-"""Rank bodies of the multi-rank CPU tests (tests/test_torch_parallel.py).
+"""Rank bodies of the multi-rank CPU tests (tests/test_torch_parallel.py,
+tests/test_torch_parallel_graph.py).
 
 `deflicker_torch.parallel.launch` starts each body in spawned processes,
 one gloo rank each, so the bodies live at module level in a module that
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from deflicker_torch.atlas import engine as teng
+from deflicker_torch.atlas.graphs import FitGraphs
 from deflicker_torch.parallel.mesh import all_reduce_sum, block
 from deflicker_torch.utils.convert import atlas_params_from_jax
 
@@ -151,3 +153,78 @@ def serve(mesh, tmp, config, lines):
     buf = io.StringIO()
     n = serve_lines(d, lines if mesh.rank == 0 else [], out=buf)
     return {"printed": buf.getvalue(), "n": n, "mesh": d.mesh.shape}
+
+
+class _FakeGraph:
+    """A stand-in for a captured CUDA graph: its replay runs `fn`."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def replay(self):
+        self.fn()
+
+
+class _RankGraphs(FitGraphs):
+    """`FitGraphs` that capture on the CPU with the backend gate lifted:
+    the capture records the step (and launches nothing), a replay runs it.
+    Records the backend each gate was asked about and the all-reduces each
+    replay ran (`counter`, a one-item list the caller's counted
+    `all_reduce` adds to)."""
+
+    def __init__(self, counter):
+        super().__init__()
+        self.counter = counter
+        self.backends, self.per_replay = [], []
+
+    def uncaptured(self, device, backend=None):
+        self.backends.append(backend)
+        return None
+
+    def warm_up(self, state, fn):
+        fn()
+
+    def _record(self, state, fn):
+        return _FakeGraph(fn)
+
+    def replay(self, state, graph, n):
+        for _ in range(n):
+            before = self.counter[0]
+            graph.replay()
+            self.per_replay.append(self.counter[0] - before)
+
+
+def graph_fit(mesh, host, cfg, data):
+    """The sample-sharded single fit twice from one generator: through the
+    stand-in graphs (`_RankGraphs`) and eagerly (`FitGraphs(eager=True)`),
+    with every `all_reduce` counted: each run's params, logs, all-reduce
+    count and graphs captured, and the stand-in's gate backends and
+    all-reduces a replay."""
+    import torch.distributed as dist
+
+    counter = [0]
+    real = dist.all_reduce
+
+    def counted(*args, **kw):
+        counter[0] += 1
+        return real(*args, **kw)
+
+    dist.all_reduce = counted
+    try:
+        specs = teng.build_specs(cfg)
+        fake = _RankGraphs(counter)
+        out = {}
+        for name, graphs in (("captured", fake),
+                             ("eager", FitGraphs(eager=True))):
+            p = atlas_params_from_jax(host)
+            counter[0] = 0
+            res = teng.fit_atlas(p, specs, data, cfg,
+                                 torch.Generator().manual_seed(5), mesh=mesh,
+                                 graphs=graphs)
+            out[name] = {"params": _params_np(p), "logs": res.logs,
+                         "all_reduces": counter[0],
+                         "captured": graphs.captured}
+    finally:
+        dist.all_reduce = real
+    out["backends"], out["per_replay"] = fake.backends, fake.per_replay
+    return out

@@ -1109,3 +1109,73 @@ def test_captured_refinement_is_bit_equal_to_the_eager_one(V, cuda_device):
         assert torch.equal(got, want)
         assert all(torch.equal(x, y) for x, y in zip(carry, ref))
     assert eng.graphs.captured == 1
+
+
+# ---------------------------------------------------------------------------
+# stage-2 training and the NCCL sharded fit as CUDA graphs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("net", ["filter", "refiner"])
+def test_captured_training_equals_eager_training(net, dtype, cuda_device):
+    """12 steps of each net with a texture bank (both clip kinds drawn),
+    captured (one graph a kind) and eager (`FitGraphs(eager=True)`) from
+    one seed: chunk logs and params bit-equal."""
+    import dataclasses
+
+    from deflicker_torch.atlas.graphs import FitGraphs
+    from deflicker_torch.models import unet_init
+    from deflicker_torch.train import stage2_trainer as T
+
+    cfg = T.TrainConfig(height=64, width=64, batch=2, clip_len=3,
+                        clip_batch=2, steps_per_call=4, dtype=dtype,
+                        filter_steps=12, refine_steps=12)
+    bank = np.random.default_rng(0).uniform(0, 1, (4, 128, 128, 3)).astype(
+        np.float32)
+    frozen = unet_init(torch.Generator().manual_seed(5))
+    runs = {}
+    for route in ("eager", "captured"):
+        graphs = FitGraphs(eager=route == "eager")
+        if net == "filter":
+            model, logs = T.train_filter(cfg, 2, None, bank, cuda_device,
+                                         graphs)
+        else:
+            model, logs = T.train_refiner(cfg, 2, frozen, None, bank,
+                                          cuda_device, graphs)
+        runs[route] = (model.state_dict(), logs, graphs.captured)
+    assert runs["eager"][1] == runs["captured"][1]
+    for a, b in zip(runs["eager"][0].values(), runs["captured"][0].values()):
+        assert torch.equal(a, b)
+    assert (runs["eager"][2], runs["captured"][2]) == (0, 2)
+
+
+def test_captured_sharded_fit_under_nccl(cuda_device):
+    """The sample-sharded fit at world size 1 under NCCL, captured (its
+    all-reduce inside the graphs) and eager, against the captured
+    unsharded fit: all three bit-equal; one graph a loss phase."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from deflicker_torch.atlas.graphs import FitGraphs
+    from deflicker_torch.parallel import make_mesh
+    from deflicker_torch.parallel.mesh import free_port
+
+    cfg, specs, data, params = _fit_case(cuda_device)
+    cfg = dataclasses.replace(cfg, iters_num=30)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        assert mesh.backend == "nccl"
+        graphs = FitGraphs()
+        captured = _run_fit(params, specs, data, cfg, cuda_device, graphs,
+                            mesh=mesh)
+        eager = _run_fit(params, specs, data, cfg, cuda_device,
+                         FitGraphs(eager=True), mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    unsharded = _run_fit(params, specs, data, cfg, cuda_device, FitGraphs())
+    _assert_same_fit(captured, eager)
+    _assert_same_fit(captured, unsharded)
+    assert graphs.captured == 2

@@ -118,13 +118,15 @@ def test_f32_training_steps_run_with_deterministic_cudnn(dtype):
     from deflicker_torch.train import stage2_trainer
 
     before = torch.backends.cudnn.deterministic
-    seen = []
+    seen, sums = [], {}
 
     def step(k):
         seen.append(torch.backends.cudnn.deterministic)
-        return {"total": torch.tensor(1.0)}
+        if not sums:
+            sums["keys"], sums["vals"] = ["total"], torch.zeros(1)
+        sums["vals"].add_(1.0)
 
-    logs = stage2_trainer._run(step, 5, 2, "filter", None, dtype)
+    logs = stage2_trainer._run(step, sums, 5, 2, "filter", None, dtype)
     assert seen == [dtype == "float32" or before] * 5
     assert [r["step"] for r in logs] == [2, 4, 5]
     assert torch.backends.cudnn.deterministic == before

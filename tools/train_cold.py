@@ -7,8 +7,10 @@ has run on the card, and the host runs slower there than in a fresh
 process.  Here the phase runs in a fresh process.  Its check of the
 trained checkpoints through `cli.stage2` needs the serve phase's clip B and
 a stage-1 output for it: this script writes the clip and copies its frames
-as that output (stage 2 reads any frames there).  Needs a CUDA card; prints
-the card's name and power limit first, then chip_smoke's `[train]` lines.
+as that output (stage 2 reads any frames there); the clip is also the
+phase's texture bank.  Needs a CUDA card; prints the card's name and power
+limit first, then chip_smoke's `[train]` lines and both routes' lines,
+captured and eager (`[train-profile-<net>-<route>]`, `[train-graphs]`).
 """
 
 from __future__ import annotations
