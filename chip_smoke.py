@@ -2629,50 +2629,13 @@ def phase_raft_profile(device, frames: Path, solves: int = 10) -> None:
                              "(one a body)")
 
 
-class PartTimer:
-    """`FilterEngine.timer`: each part of a stage-2 run in a torch.profiler
-    range `stage2.<part>`, the device synchronised at its edges, so its
-    wall time holds the device work it queued; walls summed by part."""
-
-    def __init__(self, device):
-        self.device = device
-        self.wall = {}
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        import torch
-        from torch.profiler import record_function
-
-        torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        try:
-            with record_function(f"stage2.{name}"):
-                yield
-                # inside the range: the part's device work runs within it
-                torch.cuda.synchronize(self.device)
-        finally:
-            self.wall[name] = (self.wall.get(name, 0.0)
-                               + time.perf_counter() - t0)
-
-
-def device_ms_by_range(prof, prefix: str) -> dict:
-    """Device milliseconds of the kernels and copies that run inside each
-    host range named `prefix...` (the ranges synchronise the device at
-    their edges, so the device work of a range runs inside it)."""
-    from torch.autograd import DeviceType
-
-    ranges = [(ev.name, ev.time_range.start, ev.time_range.end)
-              for ev in prof.events()
-              if ev.device_type == DeviceType.CPU and ev.name.startswith(prefix)]
-    out = {name: 0.0 for name, _, _ in ranges}
-    for ev in prof.events():
-        if (ev.device_type != DeviceType.CUDA
-                or getattr(ev, "is_user_annotation", False)):
-            continue
-        for name, t0, t1 in ranges:
-            if t0 <= ev.time_range.start and ev.time_range.end <= t1:
-                out[name] += ev.time_range.elapsed_us() / 1e3
-                break
+def span_seconds(spans, prefix: str) -> dict:
+    """Host seconds of the logged spans named `prefix<part>`, by part."""
+    out = {}
+    for name, _, t0, t1 in spans:
+        if name.startswith(prefix):
+            part = name[len(prefix):]
+            out[part] = out.get(part, 0.0) + (t1 - t0) * 1e-9
     return out
 
 
@@ -2680,12 +2643,16 @@ def phase_stage2_profile(device, frames: Path) -> dict:
     """Where configuration 1's `t_stage2` goes: `FilterEngine.run` on the
     pipeline phase's 80 frames and stage-1 output (432x768, shipped
     weights, bf16, as `run_stage2` runs it but returning the refined
-    frames), split by part with `PartTimer`: reader wait, U-Net, refinement,
-    device-to-host copies (the u8 conversions and the returned frames),
-    writer wait, the three mp4 encodes.  Run eagerly (`capture=False`),
-    then captured (a fresh engine: its capture included), then captured
-    again under torch.profiler for each part's device ms and the stage's
-    idle share; the eager and captured refined frames must be bit-equal.
+    frames), split by part through the engine's `stage2/` spans: reader
+    wait, U-Net, refinement, device-to-host copies (the u8 conversions and
+    the returned frames), writer wait, the three mp4 encodes.  `parts_s`
+    are the spans' host walls (no sync at their edges: a part's queued
+    device work may finish in a later part, and a captured refinement's
+    kernels are not tied to the part that replayed them, so the device
+    time is not split by part).  Run eagerly (`capture=False`), then
+    captured (a fresh engine: its capture included), then captured again
+    under torch.profiler for the stage's device time and idle share; the
+    eager and captured refined frames must be bit-equal.
     Then one span's refinement alone (31 frames), timed eager, captured,
     captured, eager (wall ms a frame, synchronised), then each profiled
     (device ms a frame)."""
@@ -2695,6 +2662,7 @@ def phase_stage2_profile(device, frames: Path) -> dict:
     from deflicker_torch.filter import FilterEngine, load_filter_engine
     from deflicker_torch.io.media import list_frames, read_image
     from deflicker_torch.ops.pad import Padder
+    from deflicker_torch.utils import trace
 
     style = WORK / "results" / frames.name / "stage_1" / "output"
     ckpts = [ROOT / "pretrained_weights" / n for n in
@@ -2709,30 +2677,25 @@ def phase_stage2_profile(device, frames: Path) -> dict:
     runs, outs = {}, {}
     for tag, engine in (("eager", eager), ("captured", captured),
                         ("profiled", captured)):
-        timer = PartTimer(device)
-        engine.timer = timer
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
         before = engine.graphs.captured
+        trace.clear()
         ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
                if tag == "profiled" else contextlib.nullcontext())
-        with ctx as prof:
+        with ctx as prof, trace.recording():
             t0 = time.time()
             outs[tag] = engine.run(frames, style, WORK / "results_s2" / tag)
             torch.cuda.synchronize(device)
             wall = time.time() - t0
-        engine.timer = None
-        runs[tag] = {"t_stage2": wall, "parts_s": timer.wall,
+        runs[tag] = {"t_stage2": wall,
+                     "parts_s": span_seconds(trace.spans(), "stage2/"),
                      "graphs_captured": engine.graphs.captured - before,
                      "peak_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30}
         if prof is not None:
             rows = device_events(prof)
             busy = sum(r[0] for r in rows) / 1e3
-            runs[tag]["device_ms"] = {k[len("stage2."):]: v for k, v in
-                                      device_ms_by_range(prof, "stage2.").items()}
             runs[tag]["device_busy_ms"] = busy
-            runs[tag]["device_ms_outside_parts"] = (
-                busy - sum(runs[tag]["device_ms"].values()))
             runs[tag]["idle_share"] = 1.0 - busy / (1e3 * runs["captured"]["t_stage2"])
             runs[tag]["device_ops"] = sum(r[1] for r in rows)
         print(f"[stage2-profile-{tag}] " + json.dumps(runs[tag]), flush=True)

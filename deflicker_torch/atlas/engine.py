@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from functools import partial
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -49,6 +50,7 @@ from ..models.imlp import IMLPSpec, imlp_apply, imlp_apply_fused, imlp_init
 from ..ops.coords import normalize_xyt
 from ..parallel.mesh import (Mesh, all_reduce_sum, block, is_main, replicated,
                              shard_constraint)
+from ..utils import trace
 from .data import VideoData
 from .graphs import CapturedStep, FitGraphs
 
@@ -416,7 +418,9 @@ def make_fit_step(loss_fn: Callable, params: Params,
     chunk's start).  With `mesh` (the sample-sharded fit) the terms are
     this block's shares of the whole batch's loss and the gradients are
     summed over the ranks by one all-reduce of a flat buffer made here,
-    outside any capture; under NCCL that step is captured like the rest."""
+    outside any capture; under NCCL that step is captured like the rest.
+    The step's spans `step/loss`, `step/backward` and `step/adam` run
+    where its Python runs: in eager steps and at capture."""
     device = packed.device
     T, H, W = packed.shape[-4:-1]
     flat = flat_params(params)
@@ -425,28 +429,31 @@ def make_fit_step(loss_fn: Callable, params: Params,
            else torch.empty(sum(p.numel() for p in flat), device=device))
 
     def step():
-        j = torch.randint(0, W, shape, generator=generator, device=device)
-        ii = torch.randint(0, H, shape, generator=generator, device=device)
-        f = torch.randint(0, T, shape, generator=generator, device=device)
-        norm = None
-        if mesh is not None:
-            # the whole batch's size and flow-mask counts (data, so no
-            # collective): this block's terms are shares of its loss
-            counts = packed[f, ii, j, 13:15].sum(0)
-            norm = (shape[0], counts[0], counts[1])
-        total, aux = loss_fn(params, packed, j[lo:hi], ii[lo:hi], f[lo:hi],
-                             norm)
-        if not sums:
-            sums["keys"] = sorted(aux)
-            sums["vals"] = torch.zeros((len(aux),) + total.shape,
-                                       device=device)
-        vals = torch.stack([aux[k].detach() for k in sums["keys"]])
-        optimizer.zero_grad(set_to_none=True)
-        total.sum().backward()
-        if mesh is not None:
-            all_reduce_sum([p.grad for p in flat], mesh, buf)
-        optimizer.step()
-        sums["vals"].add_(vals)
+        with trace.span("step/loss"):
+            j = torch.randint(0, W, shape, generator=generator, device=device)
+            ii = torch.randint(0, H, shape, generator=generator, device=device)
+            f = torch.randint(0, T, shape, generator=generator, device=device)
+            norm = None
+            if mesh is not None:
+                # the whole batch's size and flow-mask counts (data, so no
+                # collective): this block's terms are shares of its loss
+                counts = packed[f, ii, j, 13:15].sum(0)
+                norm = (shape[0], counts[0], counts[1])
+            total, aux = loss_fn(params, packed, j[lo:hi], ii[lo:hi],
+                                 f[lo:hi], norm)
+            if not sums:
+                sums["keys"] = sorted(aux)
+                sums["vals"] = torch.zeros((len(aux),) + total.shape,
+                                           device=device)
+            vals = torch.stack([aux[k].detach() for k in sums["keys"]])
+        with trace.span("step/backward"):
+            optimizer.zero_grad(set_to_none=True)
+            total.sum().backward()
+            if mesh is not None:
+                all_reduce_sum([p.grad for p in flat], mesh, buf)
+        with trace.span("step/adam"):
+            optimizer.step()
+            sums["vals"].add_(vals)
 
     step.sums = sums
     return step
@@ -529,6 +536,13 @@ def run_fit_schedule(params: Params, specs: AtlasSpecs, data: VideoData,
     (a kept one replays the graphs of an earlier fit of this shape; one
     with `eager=True` captures nothing); None, this fit's own.
 
+    Its spans (`utils/trace.py`): `fit/start` (the state and the Adam
+    state loaded), one `fit/chunk` a chunk around `fit/replay` (the steps
+    enqueued), `fit/sync` (the chunk sums back on the host), `fit/check`,
+    `fit/store`, `fit/log` and `fit/eval`, and `fit/end` (the host Adam
+    state); the counter `fit.start_s`, the host seconds of `fit/start`
+    with spans on or off.
+
     With `mesh`, every rank draws the samples of the whole fit and keeps
     its block of them.  The single fit shards its sample batch: rank 0's
     params are broadcast once, each step's gradients are summed over the
@@ -554,10 +568,13 @@ def run_fit_schedule(params: Params, specs: AtlasSpecs, data: VideoData,
     key = ("fit", str(device), capture, tuple(packed.shape), shape, lo, hi,
            specs, os.environ.get("DEFLICKER_IMLP_STASH") == "1",
            step_config(cfg))
-    st = graphs.state(key, params, generator,
-                      lambda p: make_optimizer(p, cfg.learning_rate),
-                      packed=packed)
-    adam_state_from_host(st.optimizer, st.params, opt_state)
+    t0 = time.perf_counter()
+    with trace.span("fit/start"):
+        st = graphs.state(key, params, generator,
+                          lambda p: make_optimizer(p, cfg.learning_rate),
+                          packed=packed)
+        adam_state_from_host(st.optimizer, st.params, opt_state)
+    trace.add_seconds("fit.start_s", time.perf_counter() - t0)
     boundaries = sorted({cfg.stop_global_rigidity + 1,
                          cfg.stop_bootstrapping_iteration + 1})
     eval_every = max(1, cfg.evaluate_every)
@@ -568,61 +585,71 @@ def run_fit_schedule(params: Params, specs: AtlasSpecs, data: VideoData,
 
     i = start_iteration
     while i < cfg.iters_num:
-        # the loss graph of this chunk, and where the chunk ends
-        flags = (cfg.include_global_rigidity_loss
-                 and i <= cfg.stop_global_rigidity,
-                 specs.dual and i <= cfg.stop_bootstrapping_iteration)
-        nxt = i + max(1, cfg.steps_per_call)
-        next_eval = ((i // eval_every) + 1) * eval_every + 1  # run through i%e==0
-        for b in boundaries + [next_eval]:
-            if i < b < nxt:
-                nxt = b
-        nxt = min(nxt, cfg.iters_num)
-        n_steps = nxt - i
+        with trace.span("fit/chunk"):
+            # the loss graph of this chunk, and where the chunk ends
+            flags = (cfg.include_global_rigidity_loss
+                     and i <= cfg.stop_global_rigidity,
+                     specs.dual and i <= cfg.stop_bootstrapping_iteration)
+            nxt = i + max(1, cfg.steps_per_call)
+            # run through i % eval_every == 0
+            next_eval = ((i // eval_every) + 1) * eval_every + 1
+            for b in boundaries + [next_eval]:
+                if i < b < nxt:
+                    nxt = b
+            nxt = min(nxt, cfg.iters_num)
+            n_steps = nxt - i
 
-        if flags not in st.steps:
-            fn = make_fit_step(make_loss_fn(specs, cfg, data, *flags),
-                               st.params, st.optimizer, st.tensors["packed"],
-                               st.generator, shape, lo, hi,
-                               mesh if sample_sharded else None)
-            st.steps[flags] = CapturedStep(fn)
-        runner = st.steps[flags]
-        sums = runner.step.sums
-        if sums:
-            sums["vals"].zero_()
-        runner.run(graphs if capture else None, st, n_steps)
-        i = nxt
-        # the one host sync of the chunk: per-chunk mean of each loss term
-        keys, vals = sums["keys"], sums["vals"]
-        if sample_sharded:
-            all_reduce_sum(vals, mesh)
-        elif mesh is not None:
-            # every rank gets every video's record (and raises alike)
-            vals = shard_constraint(vals.reshape(len(keys), -1), mesh, 1,
-                                    n_videos)
-        vals = (vals / n_steps).cpu().numpy()
-        vals = vals.reshape(len(keys), -1)
-        recs = [{k: float(vals[n, v]) for n, k in enumerate(keys)}
-                for v in range(vals.shape[1])]
-        bad = [v for v, rec in enumerate(recs) if not np.isfinite(rec["total"])]
-        if bad:
-            # dump a rescue checkpoint and fail loudly (the reference would
-            # silently produce garbage)
-            from ..utils.checkpoint import save_checkpoint
+            if flags not in st.steps:
+                fn = make_fit_step(make_loss_fn(specs, cfg, data, *flags),
+                                   st.params, st.optimizer,
+                                   st.tensors["packed"], st.generator, shape,
+                                   lo, hi, mesh if sample_sharded else None)
+                st.steps[flags] = CapturedStep(fn)
+            runner = st.steps[flags]
+            sums = runner.step.sums
+            with trace.span("fit/replay"):
+                if sums:
+                    sums["vals"].zero_()
+                runner.run(graphs if capture else None, st, n_steps)
+            i = nxt
+            # the one host sync of the chunk: per-chunk mean of each loss term
+            with trace.span("fit/sync"):
+                keys, vals = sums["keys"], sums["vals"]
+                if sample_sharded:
+                    all_reduce_sum(vals, mesh)
+                elif mesh is not None:
+                    # every rank gets every video's record (and raises alike)
+                    vals = shard_constraint(vals.reshape(len(keys), -1),
+                                            mesh, 1, n_videos)
+                vals = (vals / n_steps).cpu().numpy()
+            with trace.span("fit/check"):
+                vals = vals.reshape(len(keys), -1)
+                recs = [{k: float(vals[n, v]) for n, k in enumerate(keys)}
+                        for v in range(vals.shape[1])]
+                bad = [v for v, rec in enumerate(recs)
+                       if not np.isfinite(rec["total"])]
+                if bad:
+                    # dump a rescue checkpoint and fail loudly (the reference
+                    # would silently produce garbage)
+                    from ..utils.checkpoint import save_checkpoint
 
-            state, rescue = rescue_state(host_state()), rescue_path
-            if is_main(mesh):
-                rescue = save_checkpoint(rescue_path,
-                                         {**state, "iteration": i})
-            what = recs[0] if n_videos is None else f"video(s) {bad}"
-            raise FloatingPointError(
-                f"non-finite loss at iteration {i - 1}: {what} "
-                f"(state dumped to {rescue})")
-        st.store(params, generator)
-        on_log(i - 1, recs)
-        if (i - 1) % eval_every == 0 and i - 1 > start_iteration:
-            on_eval(i - 1, host_state())
-    return host_state(), i
+                    state, rescue = rescue_state(host_state()), rescue_path
+                    if is_main(mesh):
+                        rescue = save_checkpoint(rescue_path,
+                                                 {**state, "iteration": i})
+                    what = recs[0] if n_videos is None else f"video(s) {bad}"
+                    raise FloatingPointError(
+                        f"non-finite loss at iteration {i - 1}: {what} "
+                        f"(state dumped to {rescue})")
+            with trace.span("fit/store"):
+                st.store(params, generator)
+            with trace.span("fit/log"):
+                on_log(i - 1, recs)
+            if (i - 1) % eval_every == 0 and i - 1 > start_iteration:
+                with trace.span("fit/eval"):
+                    on_eval(i - 1, host_state())
+    with trace.span("fit/end"):
+        return host_state(), i
 
 
 def fit_atlas(params: Params, specs: AtlasSpecs, data: VideoData,
@@ -682,23 +709,26 @@ def pretrain_mapping(params: list, spec: IMLPSpec, generator: torch.Generator,
     `pretrain_iters x num_frames` times (`graphs` as in
     `run_fit_schedule`), eager steps elsewhere.  `n_videos`, `lo`, `hi`:
     the stacked mappings of `multifit.pretrain_mapping_multi`.  Params are
-    updated in place and returned."""
-    device = params[0]["w"].device
-    graphs = graphs or FitGraphs()
-    capture = graphs.capturing(device, "pretrain")
-    key = ("pretrain", str(device), capture, spec, num_frames, H, W,
-           uv_mapping_scale, batch, lr, n_videos, lo, hi)
-    st = graphs.state(key, {"mapping": params}, generator,
-                      lambda p: _adam(flat_params(p), lr),
-                      frame=torch.zeros((), dtype=torch.int64, device=device))
-    adam_state_from_host(st.optimizer, st.params, None)
-    if None not in st.steps:
-        fn = make_pretrain_step(st.params["mapping"], spec, st.optimizer,
-                                st.generator, st.tensors["frame"], num_frames,
-                                H, W, uv_mapping_scale, batch, n_videos, lo,
-                                hi)
-        st.steps[None] = CapturedStep(fn)
-    st.steps[None].run(graphs if capture else None, st,
-                       pretrain_iters * num_frames)
-    st.store({"mapping": params}, generator)
+    updated in place and returned; the whole pretrain is one span,
+    `fit/pretrain`."""
+    with trace.span("fit/pretrain"):
+        device = params[0]["w"].device
+        graphs = graphs or FitGraphs()
+        capture = graphs.capturing(device, "pretrain")
+        key = ("pretrain", str(device), capture, spec, num_frames, H, W,
+               uv_mapping_scale, batch, lr, n_videos, lo, hi)
+        st = graphs.state(key, {"mapping": params}, generator,
+                          lambda p: _adam(flat_params(p), lr),
+                          frame=torch.zeros((), dtype=torch.int64,
+                                            device=device))
+        adam_state_from_host(st.optimizer, st.params, None)
+        if None not in st.steps:
+            fn = make_pretrain_step(st.params["mapping"], spec, st.optimizer,
+                                    st.generator, st.tensors["frame"],
+                                    num_frames, H, W, uv_mapping_scale, batch,
+                                    n_videos, lo, hi)
+            st.steps[None] = CapturedStep(fn)
+        st.steps[None].run(graphs if capture else None, st,
+                           pretrain_iters * num_frames)
+        st.store({"mapping": params}, generator)
     return params

@@ -20,6 +20,14 @@ dispatched ops:
   * the chain wrappers count their launches in Python, once at capture
     and never at replay: the capture's count is taken back and each replay
     adds that step's launches;
+  * the counters of `utils/trace.py` add up the host's graph set-up:
+    `graphs.warmup_s` and `graphs.capture_s` (the host seconds of the
+    eager warm-up steps and of the captures, no sync added), and
+    `graphs.state_made`, `graphs.state_loaded` and `graphs.evicted` (fit
+    states and inference keys made, reused and dropped, of a kept
+    `FitGraphs` and an `InferenceGraphs`); `cli.serve` reports each job's
+    share of them, so a warm server whose `state_made` rises is capturing
+    again;
   * a `FitState` holds what the graphs read at fixed addresses: the
     params, the Adam state, the pack, the generator, and one memory pool
     for every graph of the fit (one a loss phase);
@@ -69,12 +77,14 @@ a caller asking for eager steps) keeps them uncaptured.
 from __future__ import annotations
 
 import sys
+import time
 from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ..ops.cuda import corr_kernel, imlp_kernel
+from ..utils import trace
 
 # eager steps before a fit's step function is captured
 WARMUP_STEPS = 2
@@ -214,7 +224,9 @@ class Graphs:
         wrappers counted while capturing are taken back: capture launches
         nothing."""
         before = [dict(c) for c in COUNTERS]
+        t0 = time.perf_counter()
         graph = self._record(state, fn)
+        trace.add_seconds("graphs.capture_s", time.perf_counter() - t0)
         counts = []
         for c, b in zip(COUNTERS, before):
             delta = {k: c[k] - b[k] for k in c if c[k] != b[k]}
@@ -280,7 +292,9 @@ class FitGraphs(Graphs):
         if st is not None:
             self.states.move_to_end(key)
             st.load(params, generator, tensors)
+            trace.count("graphs.state_loaded")
             return st
+        trace.count("graphs.state_made")
         mine = _clone_tree(params)
         gen = torch.Generator(device=generator.device)
         gen.set_state(generator.get_state())
@@ -289,6 +303,7 @@ class FitGraphs(Graphs):
         self.states[key] = st
         while len(self.states) > MAX_STATES:
             self.states.popitem(last=False)
+            trace.count("graphs.evicted")
         return st
 
 class CapturedStep:
@@ -311,7 +326,9 @@ class CapturedStep:
                 self.step()
             return
         while n > 0 and self.warm < self.warmup:
+            t0 = time.perf_counter()
             g.warm_up(state, self.step)
+            trace.add_seconds("graphs.warmup_s", time.perf_counter() - t0)
             self.warm += 1
             n -= 1
         if n > 0:
@@ -355,10 +372,13 @@ class InferenceGraphs(Graphs):
         `key`, made by `make()` the first time."""
         e = self.entries.get(key)
         if e is None:
+            trace.count("graphs.state_made")
             e = self.entries[key] = make()
             while len(self.entries) > MAX_KEYS:
                 self.entries.popitem(last=False)
+                trace.count("graphs.evicted")
         else:
+            trace.count("graphs.state_loaded")
             self.entries.move_to_end(key)
         return e
 

@@ -16,7 +16,12 @@ disk.
 
 Job keys mirror `Deflickerer.process`: video | frame_folder, and optional
 class_name / down / fps / iters / seed.  Each result line carries the
-pipeline's metrics dict plus "ok" (and "error" when a job failed).
+pipeline's metrics dict plus "ok" (and "error" when a job failed), and
+"graphs": what the job added to the CUDA graphs' counters
+(`utils/trace.py`: `graphs.state_made`, `graphs.state_loaded`,
+`graphs.evicted`, `graphs.warmup_s`, `graphs.capture_s`).  A warm server
+whose jobs keep making states is capturing again: a new shape, or more
+shapes than the kept graphs hold.
 
 Under `torchrun` with several ranks (one card each) the `Deflickerer`
 spans them (parallel/mesh.py): rank 0 alone reads stdin or the spool and
@@ -33,11 +38,13 @@ import time
 from pathlib import Path
 
 from ..parallel.mesh import broadcast_object, is_main
+from ..utils import trace
 
 
 def handle_job(d, job: dict) -> dict:
     """Run one job dict through a warm Deflickerer; never raises."""
     t0 = time.perf_counter()
+    before = trace.counters()
     try:
         allowed = {"video", "frame_folder", "class_name", "down", "fps",
                    "iters", "seed"}
@@ -47,11 +54,19 @@ def handle_job(d, job: dict) -> dict:
                              f"(allowed: {sorted(allowed)})")
         out = d.process(**job)
         out = {k: v for k, v in out.items() if not isinstance(v, Path)}
-        out.update(ok=True, wall_s=round(time.perf_counter() - t0, 2))
+        out.update(ok=True, wall_s=round(time.perf_counter() - t0, 2),
+                   graphs=graph_counts(before))
         return out
     except Exception as e:                      # keep the daemon alive
         return {"ok": False, "error": f"{type(e).__name__}: {e}",
                 "job": job, "wall_s": round(time.perf_counter() - t0, 2)}
+
+
+def graph_counts(before: dict) -> dict:
+    """The `graphs.*` counters' growth since `before`, by name."""
+    return {k[len("graphs."):]: round(v - before.get(k, 0), 3)
+            for k, v in trace.counters().items()
+            if k.startswith("graphs.") and v != before.get(k, 0)}
 
 
 def serve_lines(d, lines, out=None) -> int:

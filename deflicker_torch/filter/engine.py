@@ -44,9 +44,8 @@ Output contract (identical to the reference):
 
 from __future__ import annotations
 
-import contextlib
 from pathlib import Path
-from typing import Callable, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +56,7 @@ from ..models.unet import UNet
 from ..ops.pad import Padder
 from ..parallel.mesh import (Mesh, barrier, batch_sharding, block, is_main,
                              shard_constraint)
+from ..utils import trace
 
 
 def _to_u8(x: torch.Tensor) -> np.ndarray:
@@ -199,10 +199,9 @@ class FilterEngine:
     """Stage 2 on `device` (see the module docstring).  On the card each
     refinement step is a CUDA graph (`graphs`, an `InferenceGraphs`);
     `capture=False` refines eagerly there (the comparison the card's tests
-    and chip_smoke make).  `timer`, when set, is called with a part's name
-    ("read_wait", "unet", "refine", "d2h", "write_wait", "encode") and
-    returns the context manager that part of `run` runs in (chip_smoke's
-    stage-2 profile)."""
+    and chip_smoke make).  `run`'s parts are spans of `utils/trace.py`:
+    `stage2/read_wait`, `stage2/unet`, `stage2/refine`, `stage2/d2h`,
+    `stage2/write_wait` and `stage2/encode`."""
 
     def __init__(self, unet: UNet, tnet: TransformNet, device="cuda",
                  dtype=torch.float32, batch: int = 16, span: int = 32,
@@ -223,11 +222,6 @@ class FilterEngine:
         self.unpad = unpad
         self.graphs = InferenceGraphs(self.device, "refinement steps",
                                       capture)
-        self.timer: Optional[Callable[[str], object]] = None
-
-    def _part(self, name: str):
-        return (self.timer(name) if self.timer is not None
-                else contextlib.nullcontext())
 
     def refine(self, carry: Tuple[torch.Tensor, torch.Tensor],
                body: torch.Tensor, n_valid) -> Tuple[tuple, torch.Tensor]:
@@ -353,12 +347,12 @@ class FilterEngine:
                                 *spans[0], H, W)
             carry = None
             for k, (s0, s1) in enumerate(spans):
-                with self._part("read_wait"):
+                with trace.span("stage2/read_wait"):
                     content, style = nxt.result()
                 if k + 1 < len(spans):
                     nxt = reader.submit(self._load_span, content_names,
                                         style_names, *spans[k + 1], H, W)
-                with self._part("unet"):
+                with trace.span("stage2/unet"):
                     preds = self._filter_all(content, style, padder)
                 if carry is None:
                     # O_0 = P_0; the recurrence starts at frame 1 with carry
@@ -369,7 +363,7 @@ class FilterEngine:
                     body, offset = preds, 0
                 nb = int(body.shape[0])
                 if nb:
-                    with self._part("refine"):
+                    with trace.span("stage2/refine"):
                         carry, refined = self.refine(carry, body[None], [nb])
                     refined = refined[0]
                 else:
@@ -377,19 +371,19 @@ class FilterEngine:
                 if offset:
                     refined = torch.cat([preds[:1], refined], dim=0)
                 if is_main(self.mesh):
-                    with self._part("d2h"):
+                    with trace.span("stage2/d2h"):
                         preds_u8 = _to_u8(preds)
                         refined_u8 = _to_u8(refined)
-                    with self._part("write_wait"):
+                    with trace.span("stage2/write_wait"):
                         while len(pending) > 2:   # ~2 spans in flight at most
                             pending.pop(0).result()
                     pending.append(writer.submit(
                         self._write_span, s0, content, style, preds_u8,
                         refined_u8, results_dir, save_concat, (W, H), padder))
                 if return_output:
-                    with self._part("d2h"):
+                    with trace.span("stage2/d2h"):
                         outputs.append(refined.cpu().numpy())
-            with self._part("write_wait"):
+            with trace.span("stage2/write_wait"):
                 for f in pending:
                     f.result()
         finally:
@@ -397,7 +391,7 @@ class FilterEngine:
             writer.shutdown(wait=True)
 
         if is_main(self.mesh):
-            with self._part("encode"):
+            with trace.span("stage2/encode"):
                 self._write_videos(results_dir, save_concat, fps)
         barrier(self.mesh)
         return np.concatenate(outputs, axis=0) if return_output else None

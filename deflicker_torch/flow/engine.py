@@ -33,6 +33,7 @@ from ..io.media import FlowCache, list_frames
 from ..ops.pad import Padder
 from ..parallel.mesh import (Mesh, barrier, batch_sharding, is_main,
                              shard_constraint)
+from ..utils import trace
 from ..utils.device import resolve_device
 
 
@@ -153,24 +154,45 @@ class RAFTFlow:
         return x
 
     def compute_batch(self, im1: np.ndarray, im2: np.ndarray) -> np.ndarray:
-        """Flow for a batch of pairs: (B, H, W, 3) x2 in [0,255] -> (B, H, W, 2)."""
+        """Flow for a batch of pairs: (B, H, W, 3) x2 in [0,255] -> (B, H, W, 2).
 
-        B, H, W, _ = im1.shape
-        padder = Padder(H, W, divisor=8, mode="sintel")
-        im1 = batch_sharding(torch.from_numpy(im1), self.mesh)
-        im2 = batch_sharding(torch.from_numpy(im2), self.mesh)
-        if im1.shape[0]:
-            x1, x2 = (padder.pad(self._upload(im)) for im in (im1, im2))
-            flow = padder.unpad(self._solve(x1, x2))
-        else:           # more ranks than pairs: this rank solves none
-            if not self._said_empty:
-                from ..atlas.graphs import say_uncaptured
+        Its spans (`utils/trace.py`): `flow/batch` around `flow/upload`
+        (the arrays wrapped, copied to the device, cast, rounded and
+        padded), `flow/solve` (the copy into the captured solve's buffers
+        and its replay, or the eager solve), `flow/wait` (only while spans
+        record: the stream synchronised, which the copy back would wait for
+        anyway, so that the download's span holds only the copy; the copy
+        is then issued after the solve ends instead of during it, which
+        leaves the card idle a little longer in a traced batch) and
+        `flow/download` (unpad, the gather across ranks, the copy back)."""
+        with trace.span("flow/batch"):
+            B, H, W, _ = im1.shape
+            padder = Padder(H, W, divisor=8, mode="sintel")
+            with trace.span("flow/upload"):
+                im1 = batch_sharding(torch.from_numpy(im1), self.mesh)
+                im2 = batch_sharding(torch.from_numpy(im2), self.mesh)
+                if im1.shape[0]:
+                    x1, x2 = (padder.pad(self._upload(im))
+                              for im in (im1, im2))
+            if im1.shape[0]:
+                with trace.span("flow/solve"):
+                    flow = self._solve(x1, x2)
+            else:           # more ranks than pairs: this rank solves none
+                if not self._said_empty:
+                    from ..atlas.graphs import say_uncaptured
 
-                say_uncaptured("RAFT solves",
-                               "this rank's block of pairs is empty")
-                self._said_empty = True
-            flow = torch.zeros((0, H, W, 2), device=self.device)
-        return shard_constraint(flow, self.mesh, 0, B).cpu().numpy()
+                    say_uncaptured("RAFT solves",
+                                   "this rank's block of pairs is empty")
+                    self._said_empty = True
+                flow = torch.zeros((0, *padder.padded_hw, 2),
+                                   device=self.device)
+            if trace.enabled():
+                with trace.span("flow/wait"):
+                    if self.device.type == "cuda":
+                        torch.cuda.current_stream(self.device).synchronize()
+            with trace.span("flow/download"):
+                return shard_constraint(padder.unpad(flow), self.mesh, 0,
+                                        B).cpu().numpy()
 
     def compute_pair(self, im1: np.ndarray, im2: np.ndarray):
         both = self.compute_batch(np.stack([im1, im2]), np.stack([im2, im1]))

@@ -23,7 +23,9 @@ TINY = dict(iters_num=20, samples_batch=128, steps_per_call=10,
 # keys of a job's result that only one package reports, and why
 # "iterations": the fit steps the job ran, which the port's run_stage1
 # reports (a resumed fit runs fewer than iters_num) and the JAX package's not
-TORCH_ONLY = {"iterations"}
+# "graphs": the job's growth of the port's CUDA graph counters, which the
+# JAX package, with no CUDA graphs, has not
+TORCH_ONLY = {"iterations", "graphs"}
 JAX_ONLY = set()
 
 
