@@ -1679,6 +1679,11 @@ def phase_serve(device) -> dict:
         raise AssertionError("solve and refinement graphs captured per job "
                              f"{[(j['solve_graphs_captured'], j['refine_graphs_captured']) for j in jobs]}"
                              f", want [({want_solves}, 1), (0, 0), (0, 0)]")
+    # job 1 makes the flow engine's pinned staging; job 2, of its frame
+    # size, reuses it, and job 3 solves no flow
+    made = [r["flow"].get("staging_made", 0) for r in res[:3]]
+    if not (made[0] > 0 and made[1:] == [0, 0]):
+        raise AssertionError(f"flow staging made per job {made}")
     want = {"fwd": 3 * per, "bwd": 3 * per, "lookup": 2 * RAFT_ITERS * solves}
     if {k: v for k, v in launches.items() if v} != want:
         raise AssertionError(f"launches {launches}, want {want}")
@@ -1696,7 +1701,8 @@ def phase_serve(device) -> dict:
                             "graphs_captured": j["graphs_captured"],
                             "solve_graphs_captured": j["solve_graphs_captured"],
                             "solve_keys": j["solve_keys"],
-                            "refine_graphs_captured": j["refine_graphs_captured"]}),
+                            "refine_graphs_captured": j["refine_graphs_captured"],
+                            "flow": r["flow"]}),
               flush=True)
     print(f"[serve] error line: {res[3]['error']!r}", flush=True)
 

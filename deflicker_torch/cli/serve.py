@@ -16,12 +16,14 @@ disk.
 
 Job keys mirror `Deflickerer.process`: video | frame_folder, and optional
 class_name / down / fps / iters / seed.  Each result line carries the
-pipeline's metrics dict plus "ok" (and "error" when a job failed), and
+pipeline's metrics dict plus "ok" (and "error" when a job failed),
 "graphs": what the job added to the CUDA graphs' counters
 (`utils/trace.py`: `graphs.state_made`, `graphs.state_loaded`,
-`graphs.evicted`, `graphs.warmup_s`, `graphs.capture_s`).  A warm server
-whose jobs keep making states is capturing again: a new shape, or more
-shapes than the kept graphs hold.
+`graphs.evicted`, `graphs.warmup_s`, `graphs.capture_s`), and "flow": what
+it added to the flow engine's (`flow.staging_made`, the pinned staging
+buffers made or grown).  A warm server whose jobs keep making states is
+capturing again: a new shape, or more shapes than the kept graphs hold.
+A job that makes staging brought larger frames than any job before it.
 
 Under `torchrun` with several ranks (one card each) the `Deflickerer`
 spans them (parallel/mesh.py): rank 0 alone reads stdin or the spool and
@@ -55,18 +57,20 @@ def handle_job(d, job: dict) -> dict:
         out = d.process(**job)
         out = {k: v for k, v in out.items() if not isinstance(v, Path)}
         out.update(ok=True, wall_s=round(time.perf_counter() - t0, 2),
-                   graphs=graph_counts(before))
+                   graphs=counter_growth(before, "graphs"),
+                   flow=counter_growth(before, "flow"))
         return out
     except Exception as e:                      # keep the daemon alive
         return {"ok": False, "error": f"{type(e).__name__}: {e}",
                 "job": job, "wall_s": round(time.perf_counter() - t0, 2)}
 
 
-def graph_counts(before: dict) -> dict:
-    """The `graphs.*` counters' growth since `before`, by name."""
-    return {k[len("graphs."):]: round(v - before.get(k, 0), 3)
+def counter_growth(before: dict, group: str) -> dict:
+    """The `<group>.*` counters' growth since `before`, by name."""
+    prefix = group + "."
+    return {k[len(prefix):]: round(v - before.get(k, 0), 3)
             for k, v in trace.counters().items()
-            if k.startswith("graphs.") and v != before.get(k, 0)}
+            if k.startswith(prefix) and v != before.get(k, 0)}
 
 
 def serve_lines(d, lines, out=None) -> int:

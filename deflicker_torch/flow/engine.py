@@ -17,7 +17,12 @@ src/models/stage_1/raft_wrapper.py), as the JAX package runs it:
     counterpart of the JAX package's one jitted `raft_flow` program: the
     normalisation, fnet, cnet, the pyramid, the GRU iterations and the
     upsample, from static padded images to a static `flow_up`, replayed
-    once a batch of a shape already solved.
+    once a batch of a shape already solved;
+  * on the card a batch's frames reach the device, and its flows come
+    back, through pinned host memory (`_Staging`, `RAFTFlow._download`),
+    which the DMA engines read and write at the link's rate; pageable
+    memory goes through the CUDA runtime's own small bounce buffers a
+    chunk at a time, with the host thread blocked and the card idle.
 """
 
 from __future__ import annotations
@@ -58,6 +63,45 @@ def load_flow_image(path: str | Path, max_long_edge: int = 2000) -> np.ndarray:
         img = cv2.resize(img, (int(round(w * scale)), int(round(h * scale))),
                          interpolation=cv2.INTER_AREA)
     return img
+
+
+# pinned slots a batch's frames pass through on their way to the card, one
+# array a slot: the host fills one while the card reads the other
+SLOTS = 2
+
+
+class _Staging:
+    """Pinned host slots that host arrays pass through on their way to one
+    card, taken in turn.  A slot is written again only once the copy that
+    last read it has run on the card (its event), and grows when an array
+    needs more bytes than it holds; each slot made or grown counts
+    `flow.staging_made`.  An array goes in one piece: split into chunks,
+    the card reading one while the host fills the next, it was slower on
+    an H100's 8-core host, where every parallel host copy risks a stall."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.slots: List[Optional[torch.Tensor]] = [None] * SLOTS
+        self.read = [torch.cuda.Event() for _ in range(SLOTS)]
+        self.next = 0
+
+    def to_device(self, src: torch.Tensor) -> torch.Tensor:
+        """A copy of `src` (on the host) on the card, issued on the current
+        stream; returns once it is issued."""
+        k = self.next
+        self.next = (k + 1) % SLOTS
+        nbytes = src.numel() * src.element_size()
+        self.read[k].synchronize()      # returns at once if never recorded
+        if self.slots[k] is None or self.slots[k].numel() < nbytes:
+            self.slots[k] = torch.empty((nbytes,), dtype=torch.uint8,
+                                        pin_memory=True)
+            trace.count("flow.staging_made")
+        pinned = self.slots[k][:nbytes].view(src.dtype).view(src.shape)
+        pinned.copy_(src)
+        dst = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+        dst.copy_(pinned, non_blocking=True)
+        self.read[k].record(torch.cuda.current_stream(self.device))
+        return dst
 
 
 class _Solve:
@@ -119,6 +163,8 @@ class RAFTFlow:
         self.corr_mode = corr_mode
         self.graphs = InferenceGraphs(self.device, "RAFT solves", capture)
         self._said_empty = False
+        self._staging = (_Staging(self.device) if self.device.type == "cuda"
+                         else None)
 
     def _solve(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         """flow_up of padded images on the device: `raft_flow`, or its
@@ -143,28 +189,46 @@ class RAFTFlow:
         return e.out
 
     def _upload(self, im: torch.Tensor) -> torch.Tensor:
-        """Frames onto the device as float.  In bf16 they are rounded to
-        whole levels in [0, 255]: they originate as uint8 PNGs, and the
-        INTER_AREA-resize fractional parts are below bf16 conv noise.  The
-        rounding runs on the device, where it costs less than numpy's
-        passes over the batch on the host."""
-        x = im.to(self.device).float()    # on the CPU: the caller's array
+        """Frames onto the device as float, on the card through the pinned
+        staging.  In bf16 they are rounded to whole levels in [0, 255]:
+        they originate as uint8 PNGs, and the INTER_AREA-resize fractional
+        parts are below bf16 conv noise.  The rounding runs on the device,
+        where it costs less than numpy's passes over the batch on the
+        host."""
+        if self._staging is None:
+            x = im.to(self.device)      # on the CPU: the caller's array
+        else:
+            x = self._staging.to_device(im)
+        x = x.float()
         if self.dtype == torch.bfloat16:
             x = x.round().clamp_(0, 255)
         return x
+
+    def _download(self, flow: torch.Tensor) -> np.ndarray:
+        """The flows as a numpy array on the host.  On the card they come
+        back into a pinned block of the caching host allocator, which
+        hands the block out again only after the array is dropped."""
+        if self._staging is None:
+            return flow.cpu().numpy()
+        out = torch.empty(flow.shape, dtype=flow.dtype, pin_memory=True)
+        out.copy_(flow, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return out.numpy()
 
     def compute_batch(self, im1: np.ndarray, im2: np.ndarray) -> np.ndarray:
         """Flow for a batch of pairs: (B, H, W, 3) x2 in [0,255] -> (B, H, W, 2).
 
         Its spans (`utils/trace.py`): `flow/batch` around `flow/upload`
         (the arrays wrapped, copied to the device, cast, rounded and
-        padded), `flow/solve` (the copy into the captured solve's buffers
-        and its replay, or the eager solve), `flow/wait` (only while spans
-        record: the stream synchronised, which the copy back would wait for
-        anyway, so that the download's span holds only the copy; the copy
-        is then issued after the solve ends instead of during it, which
-        leaves the card idle a little longer in a traced batch) and
-        `flow/download` (unpad, the gather across ranks, the copy back)."""
+        padded; on the card the host's copies into the pinned staging and
+        the copies to the device issued), `flow/solve` (the copy into the
+        captured solve's buffers and its replay, or the eager solve),
+        `flow/wait` (only while spans record: the stream synchronised,
+        which the copy back would wait for anyway, so that the download's
+        span holds only the copy; the copy is then issued after the solve
+        ends instead of during it, which leaves the card idle a little
+        longer in a traced batch) and `flow/download` (unpad, the gather
+        across ranks, the copy back)."""
         with trace.span("flow/batch"):
             B, H, W, _ = im1.shape
             padder = Padder(H, W, divisor=8, mode="sintel")
@@ -191,8 +255,8 @@ class RAFTFlow:
                     if self.device.type == "cuda":
                         torch.cuda.current_stream(self.device).synchronize()
             with trace.span("flow/download"):
-                return shard_constraint(padder.unpad(flow), self.mesh, 0,
-                                        B).cpu().numpy()
+                return self._download(shard_constraint(
+                    padder.unpad(flow), self.mesh, 0, B))
 
     def compute_pair(self, im1: np.ndarray, im2: np.ndarray):
         both = self.compute_batch(np.stack([im1, im2]), np.stack([im2, im1]))

@@ -1085,6 +1085,61 @@ def test_captured_solve_is_bit_equal_to_raft_flow(body, cuda_device,
     C.reset_launches()
 
 
+def _pageable_flow(eng, a, b):
+    """`compute_batch`'s values by the pageable route: each batch through
+    `torch.from_numpy(...).to(device)`, rounded and clamped in bf16, the
+    flows back through `.cpu()`."""
+    from deflicker_torch.ops.pad import Padder
+
+    padder = Padder(*a.shape[1:3], divisor=8, mode="sintel")
+    x1, x2 = (padder.pad(torch.from_numpy(x).to(eng.device).round()
+                         .clamp_(0, 255)) for x in (a, b))
+    return padder.unpad(eng._solve(x1, x2)).cpu().numpy()
+
+
+# frame sizes of the staged-transfer tests: one padded to 264 x 456, then
+# the flow cell's 432 x 768
+STAGED_SIZES = ((260, 452), (432, 768))
+
+
+@pytest.mark.parametrize("capture", [True, False])
+def test_staged_transfers_equal_the_pageable_route(capture, cuda_device):
+    """`compute_batch` on the card, its frames through the pinned staging
+    and its flows back into pinned memory, against the pageable route on
+    the same engine: bit-equal, with the solves captured and eager, at
+    batches of 8 and 6 directions and two frame sizes (the second larger,
+    so the staging grows); the callers' fractional frames are left as they
+    were.  `flow.staging_made` grows at the larger size and
+    not at either tail; the first call's flows are unchanged after every
+    later call (no array aliases memory a later call rewrites)."""
+    from deflicker_torch.flow import RAFTFlow
+    from deflicker_torch.utils import trace
+
+    model = traft.raft_init(torch.Generator().manual_seed(0))
+    eng = RAFTFlow(model=model, iters=4, device=cuda_device, capture=capture)
+    rng = np.random.default_rng(3)
+    first = kept = None
+    made = []
+    for H, W in STAGED_SIZES:
+        for B in (8, 6):
+            before = trace.counters().get("flow.staging_made", 0)
+            for _ in range(2):
+                a = rng.uniform(0, 255, (B, H, W, 3)).astype(np.float32)
+                b = np.roll(a, 3, axis=2)
+                a0, b0 = a.copy(), b.copy()
+                got = eng.compute_batch(a, b)
+                np.testing.assert_array_equal(a, a0)
+                np.testing.assert_array_equal(b, b0)
+                np.testing.assert_array_equal(got, _pageable_flow(eng, a, b))
+                assert got.shape == (B, H, W, 2) and got.dtype == np.float32
+                if first is None:
+                    first, kept = got, got.copy()
+            made.append(trace.counters().get("flow.staging_made", 0) - before)
+    np.testing.assert_array_equal(first, kept)
+    assert made[0] > 0 and made[1] == 0 and made[2] > 0 and made[3] == 0, made
+    assert eng.graphs.captured == (4 if capture else 0)
+
+
 @pytest.mark.parametrize("V", [1, 2])
 def test_captured_refinement_is_bit_equal_to_the_eager_one(V, cuda_device):
     """`FilterEngine.refine` on the card (bf16, span 4) over spans of 4, 4

@@ -218,6 +218,23 @@ def test_raft_engine_bf16_tracks_jax(variables, model):
     assert diff.max() < 0.05 * np.abs(ref).max(), (diff.max(), np.abs(ref).max())
 
 
+def test_cpu_engine_stages_nothing(model):
+    """On the CPU `compute_batch` keeps its pageable route: no pinned
+    staging is made, `flow.staging_made` stays at 0, and the flows equal
+    `raft_flow` on `torch.from_numpy` of the caller's arrays bit for bit."""
+    from deflicker_torch.utils import trace
+
+    im1, im2 = _images(7, (2, 64, 72, 3))
+    eng = tengine.RAFTFlow(model=model, iters=2, dtype=torch.float32,
+                           device="cpu")
+    got = eng.compute_batch(im1, im2)
+    assert eng._staging is None
+    assert trace.counters().get("flow.staging_made", 0) == 0
+    _, want = traft.raft_flow(eng.model, torch.from_numpy(im1),
+                              torch.from_numpy(im2), iters=2)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
 def test_checkpoints_load_through_both_packages(variables, model, tmp_path):
     """A `.pth` written by torch.save (reference keys, `module.` prefix,
     bare or under `state_dict`) and the pickled-variables file load through

@@ -23,9 +23,9 @@ TINY = dict(iters_num=20, samples_batch=128, steps_per_call=10,
 # keys of a job's result that only one package reports, and why
 # "iterations": the fit steps the job ran, which the port's run_stage1
 # reports (a resumed fit runs fewer than iters_num) and the JAX package's not
-# "graphs": the job's growth of the port's CUDA graph counters, which the
-# JAX package, with no CUDA graphs, has not
-TORCH_ONLY = {"iterations", "graphs"}
+# "graphs", "flow": the job's growth of the port's CUDA graph counters and
+# of its flow engine's pinned staging, which the JAX package has not
+TORCH_ONLY = {"iterations", "graphs", "flow"}
 JAX_ONLY = set()
 
 
@@ -115,11 +115,37 @@ def test_serve_lines_matches_jax(clips):
         assert set(rt) - TORCH_ONLY == set(rj) - JAX_ONLY, (
             sorted(set(rt) ^ set(rj)))
         assert abs(rt["psnr"] - rj["psnr"]) < 0.3, (rt["psnr"], rj["psnr"])
+        assert rt["flow"] == {}         # the CPU stages nothing
         for k in ("final_psnr", "final_ewarp", "input_ewarp"):
             assert np.isfinite(rt[k]), k
     for name in ("vid_a", "vid_b"):
         final = tmp / "results" / name / "final" / "output"
         assert len(sorted(final.glob("*.png"))) == 3
+
+
+def test_a_result_line_carries_the_jobs_flow_and_graph_counts():
+    """Each result line of `serve_lines` carries the job's growth of the
+    `flow.*` counters beside the `graphs.*` ones, through a stand-in
+    engine that counts as the card's would: a job whose frames outgrow the
+    pinned staging, then one that reuses it."""
+    from deflicker_torch.cli.serve import serve_lines
+    from deflicker_torch.utils import trace
+
+    class Warm:
+        def process(self, frame_folder, seed=0):
+            trace.count("graphs.state_made", seed)
+            trace.count("graphs.state_loaded")
+            trace.count("flow.staging_made", seed)
+            return {"psnr": 30.0}
+
+    buf = io.StringIO()
+    jobs = [json.dumps({"frame_folder": "big", "seed": 3}),
+            json.dumps({"frame_folder": "same", "seed": 0})]
+    assert serve_lines(Warm(), jobs, out=buf) == 2
+    first, again = (json.loads(line) for line in buf.getvalue().splitlines())
+    assert first["flow"] == {"staging_made": 3}
+    assert first["graphs"] == {"state_made": 3, "state_loaded": 1}
+    assert again["flow"] == {} and again["graphs"] == {"state_loaded": 1}
 
 
 def test_serve_watch_spool(clips):
