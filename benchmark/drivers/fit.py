@@ -14,6 +14,10 @@ one step) and parameter change the reference checks once the window has
 closed, and through three steps of every later loss phase, so that the
 window captures nothing.
 
+Calibration (`benchmark/calibrate.py`): `sound` is that probe and its
+reference, `control` the reference one precision below in the program's
+place, and `faults` the fit's faults planted under the timed path.
+
 Traffic parameters: "videos" (V), "frames" (T).  The configuration gives
 the pipeline, the clip, the frame size, `down` and the atlas settings.
 """
@@ -24,6 +28,7 @@ import dataclasses
 import time
 import types
 from typing import Callable, Dict, List, Optional
+from unittest import mock
 
 import numpy as np
 import torch
@@ -375,3 +380,82 @@ def readings(probe: dict, ref: dict, params0: Dict[str, list]) -> Dict[str, floa
     return {"loss_gap": gaps["total"], "grad_gap": max(grad.values()),
             "grad_median_gap": float(np.median(list(grad.values()))),
             "update_gap": max(update.values())}
+
+
+def detail(found: dict, ref: dict, params0) -> dict:
+    """Where the readings come from: each step's loss gap, the median kept
+    leaf's gradient and change gaps, and the three worst leaves."""
+    start = {k: t.detach().cpu() for k, t in nla.leaves(params0).items()}
+    ref_grad = {k: t.cpu() for k, t in ref["grad"].items()}
+    kept = kept_leaves(ref_grad)
+    out = {"term_gaps": term_gaps(found, ref),
+           "kept": len(kept), "leaves": sum(t.shape[0] for t in ref_grad.values())}
+    for name, (p, r) in {
+            "grad": ({k: t.cpu() for k, t in found["grad"].items()}, ref_grad),
+            "update": ({k: found["params"][k] - start[k] for k in start},
+                       {k: ref["params"][k].cpu() - start[k] for k in start})}.items():
+        gaps = leaf_gaps(p, r, kept)
+        worst = sorted(gaps.items(), key=lambda kv: -kv[1])[:3]
+        out[name + "_median_leaf_gap"] = float(np.median(list(gaps.values())))
+        out[name + "_worst"] = [[f"{k[0]}[{k[1]}]", v] for k, v in worst]
+    return out
+
+
+def sound(cell, seed: int, seconds: float, device):
+    """A sound run's readings of the fit's first three steps (the probe that
+    a benchmark run makes in set-up; no window), and their detail."""
+    inp = inputs(cell, seed, device)
+    prog = Program(inp.atlas, inp.dual, inp.pack, str(cell.scratch / "rescue"))
+    found, params0, probe_seed = probe(prog, inp)
+    del prog
+    inp.pack = None
+    ref = reference(inp, params0, probe_seed)
+    return readings(found, ref, params0), {"detail": detail(found, ref, params0)}
+
+
+def control(cell, seed: int, device):
+    """The control's readings: the reference with fp8 products in the
+    program's place, against the reference at the configuration's
+    precision."""
+    inp = inputs(cell, seed, device)
+    params0, gen = job(inp, "probe")
+    ref = reference(inp, params0, gen.initial_seed())
+    low = as_probe(reference(inp, params0, gen.initial_seed(), precision="fp8"))
+    return readings(low, ref, params0), {"detail": detail(low, ref, params0)}
+
+
+def state_unchanged():
+    """Every optimizer step leaves the parameters as they were."""
+    step = torch.optim.Adam.step
+
+    def frozen(self, *args, **kwargs):
+        params = [p for g in self.param_groups for p in g["params"]]
+        saved = [p.detach().clone() for p in params]
+        out = step(self, *args, **kwargs)
+        with torch.no_grad():
+            for p, s in zip(params, saved):
+                p.copy_(s)
+        return out
+    return mock.patch.object(torch.optim.Adam, "step", frozen)
+
+
+def half_batch():
+    """The loss takes the first half of the sampled pixels and its means
+    over them."""
+    from deflicker_torch.atlas import engine
+
+    make_loss_fn = engine.make_loss_fn
+
+    def half(*args, **kwargs):
+        loss_fn = make_loss_fn(*args, **kwargs)
+
+        def on_half(params, packed, j, i, f, norm=None):
+            n = j.shape[-1] // 2
+            return loss_fn(params, packed, j[..., :n], i[..., :n], f[..., :n], norm)
+        return on_half
+    return mock.patch.object(engine, "make_loss_fn", half)
+
+
+def faults(cell) -> dict:
+    """Faults planted under the timed path, name -> context manager factory."""
+    return {"state_unchanged": state_unchanged, "half_batch": half_batch}

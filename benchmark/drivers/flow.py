@@ -1,77 +1,49 @@
-"""Traffic of kind "flow": RAFT flow of a clip's consecutive pairs, clip
-after clip, closed loop.
+"""Traffic of kind "flow": the flow of a clip's consecutive pairs, clip
+after clip, closed loop, by the flow model the configuration names
+(`benchmark/flowmodels/<name>.py`; RAFT where it names none).
 
-The pairs go through `RAFTFlow.compute_batch` as the port's
+The pairs go through the engine's `compute_batch` as the port's
 `preprocess_optical_flow` batches them: `pair_batch` pairs a call, forward
-and backward directions stacked with `np.stack` into one batch, the tail
-batch shorter.  The frames sit in memory as float32 levels: no image
-decodes and no `.npy` writes, which are host I/O.  The window closes at the
-first batch whose flows are back on the host past `seconds`.
+and backward directions stacked into one batch, the tail batch shorter.
+The frames sit in memory as float32 levels: no image decodes and no `.npy`
+writes, which are host I/O.  The window closes at the first batch whose
+flows are back on the host past `seconds`.
 
-Set-up makes the clip and RAFT's weights on the device from the seed
-(the published widths, in the dtype the flow is served in) and solves one
-full and one tail batch twice, so that both solves are captured before the
-window.  Once the window has closed, a sample of the window's batches drawn
-from the seed (two, and the last one) is solved again by the plain
-reference and compared flow by flow.
+Set-up makes the clip and the model's weights on the device from the seed
+(the published widths, in the dtype the flow is served in), stacks every
+batch of the clip once, and solves one full and one tail batch twice, so
+that both solves are captured before the window.  The window then holds
+the engine's calls alone: the stack is the traffic's making, 64 MB of host
+copies a batch whose page faults and bandwidth swing from one process to
+the next on a shared host.  Once the window has closed, a sample of the
+window's batches drawn from the seed (two, and the last one) is solved
+again by the plain reference, one direction at a time, and compared flow
+by flow.
+
+Calibration (`benchmark/calibrate.py`): `sound` is a run as above,
+`control` the reference one precision below in the program's place, and
+`faults` the generic faults of the flow engine and the model's own.
 
 Traffic parameters: "frames" (T).  The configuration gives the clip, the
-frame size and the RAFT settings.
+frame size and the model's settings.
 """
 
 from __future__ import annotations
 
-import math
 import random
 import time
-from typing import Dict, List
+from typing import List
+from unittest import mock
 
 import numpy as np
 import torch
 
+from .. import flowmodels
 from ..core import trace as tracing
 from ..core.seeds import sub_seed
-from ..counts import raft as raft_counts
 from ..data.clips import frames_uint_levels
-from ..reference import raft as reference
 
 SAMPLED = 2            # batches of the window the reference checks, and the last
-
-
-def make_weights(seed: int, device, dtype) -> Dict[str, torch.Tensor]:
-    """RAFT's state dict at the published widths: conv weights normal with
-    std 1/sqrt(fan_in) from one draw on the device, zero biases, batch norms
-    at their initial statistics; in `dtype`."""
-    shapes = reference.parameter_shapes()
-    total = sum(math.prod(s) for _, s, kind in shapes if kind == "conv_w")
-    gen = torch.Generator(device=device).manual_seed(sub_seed(seed, "raft"))
-    flat = torch.randn((total,), generator=gen, device=device)
-    out, off = {}, 0
-    fill = {"conv_b": 0.0, "bn_w": 1.0, "bn_b": 0.0, "bn_mean": 0.0, "bn_var": 1.0}
-    for name, shape, kind in shapes:
-        if kind == "conv_w":
-            n = math.prod(shape)
-            fan_in = n // shape[0]
-            out[name] = (flat[off:off + n].view(shape) / math.sqrt(fan_in)).to(dtype)
-            off += n
-        elif kind == "bn_count":
-            out[name] = torch.zeros((), dtype=torch.long, device=device)
-        else:
-            out[name] = torch.full(shape, fill[kind], dtype=dtype, device=device)
-    return out
-
-
-def program(weights: Dict[str, torch.Tensor], config: dict, device):
-    """The measured flow entry: a `RAFTFlow` over the weights."""
-    from deflicker_torch.flow.engine import RAFTFlow
-    from deflicker_torch.models.raft import RAFT
-
-    with torch.device("meta"):
-        model = RAFT()
-    model.load_state_dict(weights, strict=True, assign=True)
-    dtype = getattr(torch, config["raft"]["dtype"])
-    return RAFTFlow(model=model, iters=config["raft"]["iters"], dtype=dtype,
-                    device=device)
 
 
 def batches(frames: int, pair_batch: int) -> List[List[int]]:
@@ -88,21 +60,42 @@ def stacked(frames: np.ndarray, ks: List[int]):
     return a, b
 
 
+def inputs(cell, seed: int, device):
+    """The clip as float32 levels on the host, the model's weights on the
+    device in the dtype the flow is served in, and the batches' plan."""
+    config, model = cell.config, flowmodels.of(cell.config)
+    settings = model.settings(config)
+    frames = frames_uint_levels(config["clip"], cell.traffic["frames"],
+                                config["frame_size"], seed, device).cpu().numpy()
+    weights = model.make_weights(seed, device, getattr(torch, settings["dtype"]))
+    return frames, weights, batches(cell.traffic["frames"], settings["pair_batch"])
+
+
+def solved(model, plain, frames: np.ndarray, ks: List[int], config: dict,
+           device, trace=None) -> np.ndarray:
+    """The plain reference's flows of the batch of pairs `ks`, solved one
+    direction at a time, so that the device holds one direction's all-pairs
+    volume and no more."""
+    a, b = stacked(frames, ks)
+    return np.concatenate([
+        model.reference_flow(plain, torch.from_numpy(a[d:d + 1]).to(device),
+                             torch.from_numpy(b[d:d + 1]).to(device), config,
+                             trace=trace).cpu().numpy()
+        for d in range(a.shape[0])])
+
+
 def measure(cell, seed: int, seconds: float, trace: bool, device,
             t_process: float) -> dict:
     parts = {"start": time.perf_counter() - t_process}
     t = time.perf_counter()
-    config, traffic = cell.config, cell.traffic
-    dtype = getattr(torch, config["raft"]["dtype"])
-    frames = frames_uint_levels(config["clip"], traffic["frames"],
-                                config["frame_size"], seed, device).cpu().numpy()
-    weights = make_weights(seed, device, dtype)
-    engine = program(weights, config, device)
-    plan = batches(traffic["frames"], config["raft"]["pair_batch"])
+    config, model = cell.config, flowmodels.of(cell.config)
+    frames, weights, plan = inputs(cell, seed, device)
+    engine = model.program(weights, config, device)
+    calls = [stacked(frames, ks) for ks in plan]
     parts["inputs"], t = time.perf_counter() - t, time.perf_counter()
-    for ks in {len(ks): ks for ks in plan}.values():     # every batch shape
+    for i in {len(ks): i for i, ks in enumerate(plan)}.values():  # every shape
         for _ in range(2):
-            engine.compute_batch(*stacked(frames, ks))
+            engine.compute_batch(*calls[i])
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     parts["warm"] = time.perf_counter() - t
@@ -116,7 +109,7 @@ def measure(cell, seed: int, seconds: float, trace: bool, device,
     last = None
     while True:
         ks = plan[n % len(plan)]
-        flows = engine.compute_batch(*stacked(frames, ks))
+        flows = engine.compute_batch(*calls[n % len(plan)])
         item = (n, ks, flows)
         if len(kept) < SAMPLED:
             kept.append(item)
@@ -136,29 +129,24 @@ def measure(cell, seed: int, seconds: float, trace: bool, device,
     if trace:
         traced = {"batches": [2 * len(ks) for ks in plan]}
         with tracing.profiled(traced):
-            for ks in plan:
-                with tracing.span("pair_stack"):
-                    a, b = stacked(frames, ks)
+            for a, b in calls:
                 with tracing.span("compute_batch"):
                     engine.compute_batch(a, b)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-    del engine
+    del engine, calls
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
     # the reference solves the sampled batches again
-    model = reference.Model(weights)
+    plain = model.reference(weights)
     checked = {i: (ks, f) for i, ks, f in kept + [last]}
     gaps, dots, looked = [], 0, 0
     H8, W8 = config["frame_size"][0] // 8, config["frame_size"][1] // 8
     for i, (ks, flows) in sorted(checked.items()):
-        a, b = stacked(frames, ks)
         coords: list = []
-        want = reference.flow(model, torch.from_numpy(a).to(device),
-                              torch.from_numpy(b).to(device),
-                              config["raft"]["iters"], trace=coords)
-        gaps.append(flow_gap(flows, want.cpu().numpy()))
-        dots += sum(raft_counts.needed_dots(c, H8, W8) for c in coords)
+        gaps.append(flow_gap(flows, solved(model, plain, frames, ks, config,
+                                           device, trace=coords)))
+        dots += sum(model.needed_dots(c, H8, W8) for c in coords)
         looked += sum(c.shape[0] for c in coords)
     window["dots_per_direction_lookup"] = dots / looked
     return {"e2e": {"flow_pairs_per_s": pairs / window["seconds"]},
@@ -172,3 +160,59 @@ def flow_gap(got: np.ndarray, want: np.ndarray) -> float:
     pixels: max over the batch's directions of mean |got - want|_2."""
     d = np.sqrt(((got.astype(np.float64) - want) ** 2).sum(-1))
     return float(d.reshape(d.shape[0], -1).mean(1).max())
+
+
+def sound(cell, seed: int, seconds: float, device):
+    """A sound run's readings: set-up, a window of `seconds`, the comparison."""
+    out = measure(cell, seed, seconds, False, device, time.perf_counter())
+    return out["checks"], {"failed": out["failed"], "e2e": out["e2e"]}
+
+
+def control(cell, seed: int, device):
+    """The control's readings: the reference one precision below the
+    configuration's (fp8 products for its bfloat16 ones) in the program's
+    place, against the float32 reference, on the first two batches and the
+    tail, one direction at a time."""
+    config, model = cell.config, flowmodels.of(cell.config)
+    frames, weights, plan = inputs(cell, seed, device)
+    want, low = model.reference(weights), model.reference(weights, "fp8")
+    gaps = [flow_gap(solved(model, low, frames, ks, config, device),
+                     solved(model, want, frames, ks, config, device))
+            for ks in (plan[0], plan[1], plan[-1])]
+    return {"flow_epe": max(gaps)}, {}
+
+
+def half_batch():
+    """A solve runs the first half of its directions and returns zeros for
+    the rest."""
+    from deflicker_torch.flow.engine import RAFTFlow
+
+    solve = RAFTFlow._solve
+
+    def half(self, x1, x2):
+        h = max(1, x1.shape[0] // 2)
+        out = solve(self, x1[:h].contiguous(), x2[:h].contiguous())
+        rest = torch.zeros((x1.shape[0] - h,) + tuple(out.shape[1:]),
+                           dtype=out.dtype, device=out.device)
+        return torch.cat([out, rest])
+    return mock.patch.object(RAFTFlow, "_solve", half)
+
+
+def answer_altered():
+    """One direction's flow, where it is produced, one pixel off in x."""
+    from deflicker_torch.flow.engine import RAFTFlow
+
+    compute_batch = RAFTFlow.compute_batch
+
+    def altered(self, im1, im2):
+        flows = compute_batch(self, im1, im2)
+        flows[0, ..., 0] += 1.0
+        return flows
+    return mock.patch.object(RAFTFlow, "compute_batch", altered)
+
+
+def faults(cell) -> dict:
+    """Faults planted under the timed path, name -> context manager factory:
+    the flow model's own, then the flow engine's."""
+    return {**flowmodels.of(cell.config).faults(), "half_batch": half_batch,
+            "answer_altered": answer_altered}

@@ -1,10 +1,10 @@
 """The correlation kernel's share of its roofline in the profiled solves:
-each lookup's bound (`counts.raft.lookup_bound_s`: bytes from the shapes,
-operations the dots its window positions need, counted on the plain
-reference's solve of a batch of the window) over the profiler's device time
-of the kernels named here."""
+each lookup's bound (the flow model's `lookup_bound_s`, for the RAFT family
+`counts/raft.py`'s: bytes from the shapes, operations the dots its window
+positions need, counted on the plain reference's solve of a batch of the
+window) over the profiler's device time of the kernels named here."""
 
-from benchmark.counts import raft
+from benchmark import flowmodels
 
 SOURCE = "device_trace"
 LAYER = "corr kernel"
@@ -21,8 +21,9 @@ def read(run):
         return None
     H, W = run.config["frame_size"]
     H8, W8 = H // 8, W // 8
-    iters = run.config["raft"]["iters"]
+    model = flowmodels.of(run.config)
+    iters = model.settings(run.config)["iters"]
     dots = run.window["dots_per_direction_lookup"]
-    bound = sum(iters * raft.lookup_bound_s(b, H8, W8, b * dots)
+    bound = sum(iters * model.lookup_bound_s(b, H8, W8, b * dots)
                 for b in t["batches"])
     return 100.0 * bound / kernel_s

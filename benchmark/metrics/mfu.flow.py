@@ -1,9 +1,11 @@
 """The whole flow solve's share of the card's bf16 peak over the window:
-RAFT's model FLOPs a direction (`counts.raft`: every convolution, the
-lookups' window dots, the upsampling; no all-pairs volume) times the
+the model FLOPs a direction of the flow model the configuration names
+(`benchmark/flowmodels/<name>.py`; RAFT's count every convolution, the
+lookups' window dots, the upsampling, and no all-pairs volume) times the
 directions solved, over the window's seconds."""
 
-from benchmark.counts import peaks, raft
+from benchmark import flowmodels
+from benchmark.counts import peaks
 
 SOURCE = "host_clock"
 LAYER = "flow"
@@ -14,6 +16,5 @@ def read(run):
     w = run.window
     if not w.get("directions"):
         return None
-    H, W = run.config["frame_size"]
-    flops = raft.direction_flops(H, W, run.config["raft"]["iters"]) * w["directions"]
+    flops = flowmodels.of(run.config).direction_flops(run.config) * w["directions"]
     return 100.0 * flops / (w["seconds"] * peaks.BF16_FLOPS)

@@ -53,6 +53,11 @@ def forbidden_modules() -> list:
     return sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 
 
+def driver(cell):
+    """The generator of the cell's traffic: `benchmark/drivers/<kind>.py`."""
+    return importlib.import_module(f"benchmark.drivers.{cell.traffic['kind']}")
+
+
 def per_layer(cell, out: dict) -> dict:
     from benchmark.core import manifest
 
@@ -113,9 +118,8 @@ def main(argv=None) -> int:
         print(f"benchmark: cannot import the program: {e}", file=sys.stderr)
         return 4
     device = torch.device("cuda:0")
-    driver = importlib.import_module(f"benchmark.drivers.{cell.traffic['kind']}")
-    out = driver.measure(cell, args.seed, args.seconds, bool(args.trace), device,
-                         T_PROCESS)
+    out = driver(cell).measure(cell, args.seed, args.seconds, bool(args.trace),
+                               device, T_PROCESS)
     return report(cell, out, bool(args.trace))
 
 

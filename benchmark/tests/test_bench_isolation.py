@@ -38,6 +38,23 @@ def test_the_yardstick_imports_nothing_of_the_program():
     assert not bad, bad
 
 
+def test_the_flow_layer_reaches_a_model_only_through_its_module():
+    """The flow driver, the calibration and the flow readers import nothing
+    of one flow model: they reach it through `benchmark.flowmodels`, so a
+    second model is new files."""
+    files = [BENCH / "drivers" / "flow.py", BENCH / "calibrate.py",
+             *(BENCH / "metrics").glob("*.flow.py")]
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = [a.name for a in node.names]
+                names += [node.module] if getattr(node, "module", None) else []
+                bad += [f"{path.name}: {n}" for n in names
+                        if any(part in ("raft", "gma") for part in n.split("."))]
+    assert not bad, bad
+
+
 def test_whole_top_level_names_are_compared():
     from benchmark import run
 

@@ -78,18 +78,78 @@ def test_every_cell_resolves_to_its_files(cell):
             m["source"], m["layer"], m["moves"])
 
 
+def _kinds(config_name: str) -> set:
+    return {json.loads((ROOT / "benchmark" / "traffic" / f"{w['traffic']}.json")
+                       .read_text())["kind"]
+            for w in BENCH["workloads"] if w["config"] == config_name}
+
+
+def cuts_stated(entry: dict, conf: dict) -> bool:
+    """Every key that the manifest's `reduced` lists is in the configuration
+    file at the value run, and in the file's `reduced` object with the
+    published value it was cut from and the deployment that it stands for;
+    the object lists no other key.  An empty list needs no object."""
+    stated = conf.get("reduced", {})
+    return set(stated) == set(entry["reduced"]) and all(
+        k in conf and {"published", "stands_for"} <= set(stated[k])
+        and stated[k]["published"] != conf[k] for k in stated)
+
+
+@pytest.mark.parametrize("listed,stated,ok", [
+    ([], None, True),
+    (["levels"], {"levels": {"published": 4, "stands_for": "raft-things at 1080p"}},
+     True),
+    (["levels"], None, False),
+    (["levels"], {"levels": {"published": 4}}, False),
+    (["levels"], {"levels": {"published": 3, "stands_for": "raft-things"}}, False),
+    ([], {"levels": {"published": 4, "stands_for": "raft-things"}}, False),
+])
+def test_a_cut_is_listed_with_its_published_value(listed, stated, ok):
+    conf = {"levels": 3}
+    if stated is not None:
+        conf["reduced"] = stated
+    assert cuts_stated({"reduced": listed}, conf) is ok
+
+
 def test_configs_state_their_source_and_cuts():
     from deflicker_torch.config import AtlasConfig
+
+    from benchmark import flowmodels
 
     reference_keys = set(AtlasConfig().to_reference_json())
     for entry in BENCH["configs"]:
         assert entry["file"].startswith("benchmark/configs/")
         conf = json.loads((ROOT / entry["file"]).read_text())
         assert conf["name"] == entry["name"] and conf["source"] == entry["source"]
-        assert reference_keys <= set(conf["atlas"])
-        assert entry["reduced"] == []
+        assert cuts_stated(entry, conf), entry["name"]
         assert conf["assumed"]
-        AtlasConfig(**conf["atlas"])
+        kinds = _kinds(entry["name"])
+        assert kinds, entry["name"]
+        if "fit" in kinds:
+            assert reference_keys <= set(conf["atlas"])
+            AtlasConfig(**conf["atlas"])
+        if "flow" in kinds:
+            model = flowmodels.of(conf)
+            assert all(callable(getattr(model, k)) for k in flowmodels.API)
+            assert {"iters", "dtype", "pair_batch"} <= set(model.settings(conf))
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+def test_every_cell_resolves_its_drivers_control_and_faults(cell):
+    """calibrate.py reaches every cell through its driver alone: `sound`,
+    `control` and `faults`, each fault a context manager that patches the
+    program while it is open."""
+    from benchmark import run
+    from benchmark.core import manifest
+
+    c = manifest.cell(cell, ROOT)
+    driver = run.driver(c)
+    assert callable(driver.sound) and callable(driver.control)
+    faults = driver.faults(c)
+    assert faults and all(NAME.match(name) for name in faults)
+    for plant in faults.values():
+        with plant():
+            pass
 
 
 def test_every_metric_file_is_listed():

@@ -7,7 +7,9 @@ import numpy as np
 import pytest
 import torch
 
+from benchmark.data.clips import frames_uint_levels
 from benchmark.drivers import fit, flow
+from benchmark.flowmodels import raft as raft_model
 from benchmark.reference import raft as reference
 from benchmark.tests import small
 
@@ -31,7 +33,7 @@ def test_raft_reference_follows_the_port_in_float32():
     from deflicker_torch.models.raft import RAFT, raft_flow
 
     cpu = torch.device("cpu")
-    weights = flow.make_weights(3, cpu, torch.float32)
+    weights = raft_model.make_weights(3, cpu, torch.float32)
     with torch.device("meta"):
         model = RAFT()
     model.load_state_dict(weights, strict=True, assign=True)
@@ -43,6 +45,26 @@ def test_raft_reference_follows_the_port_in_float32():
     scale = float(want.abs().max())
     assert scale > 0
     assert float((got - want).abs().max()) < 1e-3 * max(scale, 1.0)
+
+
+def test_the_reference_solved_a_direction_at_a_time_is_the_batched_solve():
+    """The flow check solves a batch one direction at a time, so that the
+    device holds one direction's all-pairs volume: the same flows as the
+    whole batch at once."""
+    cpu = torch.device("cpu")
+    cell = small.flow_cell()
+    config = cell.config
+    frames = frames_uint_levels(config["clip"], 3, config["frame_size"],
+                                2 ** 31 + 13, cpu).numpy()
+    weights = raft_model.make_weights(2 ** 31 + 13, cpu, torch.float32)
+    plain = raft_model.reference(weights)
+    a, b = flow.stacked(frames, [0, 1])
+    batched = raft_model.reference_flow(plain, torch.from_numpy(a),
+                                        torch.from_numpy(b), config).numpy()
+    one = flow.solved(raft_model, plain, frames, [0, 1], config, cpu)
+    assert one.shape == batched.shape == (4, 128, 128, 2)
+    assert float(np.abs(batched).max()) > 0.1
+    assert flow.flow_gap(one, batched) < 1e-5
 
 
 def test_flow_gap_is_the_worst_directions_mean_endpoint_error():

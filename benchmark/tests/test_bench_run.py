@@ -9,7 +9,7 @@ import time
 import pytest
 import torch
 
-from benchmark import calibrate, faults, run
+from benchmark import run
 from benchmark.drivers import fit, flow
 from benchmark.tests import small
 
@@ -35,9 +35,13 @@ def _fake_out(trace):
 
 
 @pytest.mark.parametrize("trace", [False, True])
-def test_the_last_line(capsys, trace):
+def test_the_last_line(capsys, monkeypatch, trace):
     from benchmark.core import manifest
+    from deflicker_torch.utils import trace as program_trace
 
+    # the program's counters are the process's: what earlier tests counted
+    # is not this fake run's
+    monkeypatch.setattr(program_trace, "counters", dict)
     cell = manifest.cell("single-fit", run.ROOT)
     assert run.report(cell, _fake_out(trace), trace, device_name="cpu") == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -71,31 +75,31 @@ def _fit(cell, seconds=0.2):
     return fit.measure(cell, SEED, seconds, False, CPU, time.perf_counter())
 
 
-@pytest.mark.parametrize("fault", sorted(faults.FAULTS["fit"]))
+@pytest.mark.parametrize("fault", sorted(fit.faults(small.fit_cell())))
 def test_a_fit_fault_is_not_correct(fault):
     cell = small.fit_cell()
-    with faults.FAULTS["fit"][fault]():
+    with fit.faults(cell)[fault]():
         out = _fit(cell)
     assert run.judge(cell, out)[0] is False
 
 
 def test_the_fit_control_is_not_correct():
     cell = small.fit_cell()
-    readings, _ = calibrate.control_fit(cell, SEED, CPU)
+    readings, _ = fit.control(cell, SEED, CPU)
     assert run.judge(cell, {"checks": readings, "failed": 0})[0] is False
 
 
-@pytest.mark.parametrize("fault", sorted(faults.FAULTS["flow"]))
+@pytest.mark.parametrize("fault", sorted(flow.faults(small.flow_cell())))
 def test_a_flow_fault_is_not_correct(fault):
     cell = small.flow_cell()
-    with faults.FAULTS["flow"][fault]():
+    with flow.faults(cell)[fault]():
         out = flow.measure(cell, SEED, 0.2, False, CPU, time.perf_counter())
     assert run.judge(cell, out)[0] is False
 
 
 def test_the_flow_control_is_not_correct():
     cell = small.flow_cell()
-    readings = calibrate.control_flow(cell, SEED, CPU)
+    readings, _ = flow.control(cell, SEED, CPU)
     assert run.judge(cell, {"checks": readings, "failed": 0})[0] is False
 
 
