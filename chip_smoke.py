@@ -1,11 +1,12 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python chip_smoke.py
+    python chip_smoke.py --only gma     # phases 1 and 2's GMA part alone
 
 Phases (any failure exits non-zero before the result line):
   1. device and build: prints `nvidia-smi` name and power limit, builds the
-     CUDA kernels from `deflicker_torch/csrc` (the IMLP chain and the
-     correlation lookup, one nvcc each, started together) and times it,
+     CUDA kernels from `deflicker_torch/csrc` (the IMLP chain, the
+     correlation lookup and GMA's attention, one nvcc each, started together) and times it,
      with every kernel's registers, spills and shared memory;
   2. kernel vs plain: every kernel of the main paths at their shapes — the
      single fit's mapping1 query (90,000 rows x 6 layers of 256) and atlas
@@ -21,7 +22,12 @@ Phases (any failure exits non-zero before the result line):
      it reads), the plain twin and, where
      one PyTorch call computes the same function, that call; each backward
      also piece by piece (recompute, reverse pass, dW GEMM, reduction; the
-     recompute at the dual fit's shapes too);
+     recompute at the dual fit's shapes too); and GMA's attention kernels
+     (`phase_gma`): the build and the aggregation at 1080p (8 directions x
+     32,400 positions) against their twin on the same card tensors, timed
+     beside their bound (`benchmark/counts/gma.py`), then a GMA solve
+     through `RAFTFlow` at 1080x1920 whose every batch launches one build
+     and 20 aggregations, the replay bit-equal to the eager solve;
   3. the pipeline with Farneback flow: `deflicker_torch.cli.pipeline
      .run_pipeline` on a procedural flickering clip of 80 frames at 432x768,
      at the default AtlasConfig widths and batch with the shipped stage-2
@@ -198,6 +204,7 @@ SERVE_FRAMES = 40            # the serve phase's clips
 ITERS_SERVE = 100           # fit steps of each served job
 PRETRAIN_SERVE = 25         # pretrain sweeps there (default 100)
 CORR_SPREADS = (0.5, 3.0, 40.0)
+GMA_SHAPE = (8, 135, 240)   # the GMA phase: 8 directions of 1080x1920 at 1/8
 VIDEOS = 3                  # video axis of the batched chain phase
 TRAIN_SHAPE = {"size": 128, "batch": 8, "clip_len": 6, "clip_batch": 2}  # the CLI's defaults
 TRAIN_FILTER_STEPS = 200    # stage-2 training: filter steps (CLI default 4000)
@@ -761,6 +768,184 @@ def phase_corr_kernel(device, cases=CORR_CASES, tag="kernel") -> list:
         rows.append(row)
         print(f"[{tag}] corr {name}: {row}", flush=True)
     return rows
+
+
+def gma_qk(B, N, device, spread=4.0, seed=0):
+    """q and k in bf16 whose logits q k / sqrt(DIM) have the standard
+    deviation `spread`: at 4 over 32,400 keys a peaked attention, as the
+    flow cell's weights give (top weights of a tenth or more)."""
+    import torch
+
+    from deflicker_torch.ops.cuda.attention_kernel import DIM
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, N, 2 * DIM), generator=gen) * math.sqrt(spread)
+    return x.to(torch.bfloat16).to(device)
+
+
+def phase_gma(device) -> list:
+    """GMA's attention kernels at 1080p (8 directions x 135 x 240
+    positions) against their plain twin on the same card tensors, then a
+    GMA solve through `RAFTFlow` at 1080x1920 (4 pairs x 2 directions, 20
+    iterations, bf16, captured) with the launch counters zeroed just
+    before each batch; the kernels' device times beside their bound
+    (`benchmark/counts/gma.py` `attention_bound_s`: one q k^T and 20
+    products attn @ v a direction, nothing of the N^2 attention).
+
+    Build: the statistics within f32 rounding of the sums' order; every
+    entry of P within one bf16 step of the twin's (2^-7 of it, the two
+    roundings of f32 values that differ in their last bits), and every
+    row's sum within 2^-8 of 1, which a key tile dropped or counted twice
+    anywhere a row has weight fails.  Aggregation: every output within
+    one bf16 step of the twin's plus 2^-8 of the row's largest; the f32
+    output within what the tensor cores' accumulator can drop, one unit
+    in the last place of the running sum a 16-key step (2,028 steps at
+    1080p: 2.4e-4 of gamma sum_j P_ij |v_j|).  Two calls bit-equal."""
+    import torch
+
+    from benchmark.counts import gma as counts
+    from deflicker_torch.flow import RAFTFlow
+    from deflicker_torch.models.gma import gma_init
+    from deflicker_torch.ops.cuda import attention_kernel as A
+    from deflicker_torch.utils import trace
+
+    B, H8, W8 = GMA_SHAPE
+    N = H8 * W8
+    qk = gma_qk(B, N, device)
+    probs, stats = A.attention_buffers(B, N, torch.bfloat16, device)
+    A.build_cuda(qk, probs, stats)
+    first = probs.clone()
+    A.build_cuda(qk, probs, stats)
+    torch.cuda.synchronize()
+    if not torch.equal(first, probs):
+        raise AssertionError("gma build: two calls differ")
+    del first
+    pw, sw = A.attention_buffers(B, N, torch.bfloat16, device)
+    A.build_plain(qk, pw, sw)
+    stat_err = [abs_err(stats[..., 0], sw[..., 0]), rel_err(stats[..., 1], sw[..., 1])]
+    if not (stat_err[0] <= 1e-4 + 1e-5 * float(sw[..., 0].abs().max())
+            and stat_err[1] <= 1e-4):
+        raise AssertionError(f"gma build: row statistics off the twin's: {stat_err}")
+    worst, row_sum, sq_err, sq = 0.0, 0.0, 0.0, 0.0
+    for b in range(B):
+        p, q = probs[b].float(), pw[b].float()
+        sq_err += float((p - q).square().sum())
+        sq += float(q.square().sum())
+        over = ((p - q).abs() - 2 ** -7 * q.abs()).amax()
+        worst = max(worst, float(over))
+        row_sum = max(row_sum, float(p[:, :N].sum(-1).sub(1).abs().max()))
+        if bool((p[:, N:] != 0).any()):
+            raise AssertionError("gma build: P's key padding is not zero")
+    if worst > 0 or row_sum > 2 ** -8:
+        raise AssertionError(f"gma build: P past one bf16 step of the twin's by {worst}, "
+                             f"a row's sum {row_sum} off 1")
+    top = float(pw[..., :N].amax(-1).float().mean())
+    p_err = math.sqrt(sq_err / sq)
+    del pw, sw
+
+    gen = torch.Generator().manual_seed(1)
+    v = torch.randn((B, N, A.DIM), generator=gen).to(torch.bfloat16).to(device)
+    agg = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        mf = torch.randn((B, N, A.DIM), generator=gen).to(dtype).to(device)
+        gamma = torch.tensor([0.75], dtype=dtype, device=device)
+        out = A.aggregate_cuda(probs, v, mf, gamma)
+        if not torch.equal(out, A.aggregate_cuda(probs, v, mf, gamma)):
+            raise AssertionError(f"gma aggregate {dtype}: two calls differ")
+        ref = A.aggregate_plain(probs, v, mf, gamma).float()
+        diff = (out.float() - ref).abs()
+        if dtype == torch.bfloat16:
+            room = 2 ** -7 * ref.abs() + 2 ** -8 * ref.abs().amax(-1, keepdim=True)
+        else:
+            # the tensor cores' f32 accumulator drops up to one unit in the
+            # last place of the running sum at each 16-key step: at most
+            # steps x 2^-23 x gamma sum_j P_ij |v_j|; then the f32 output's
+            # own rounding
+            size = A.aggregate_plain(probs, v.abs(), torch.zeros_like(mf), gamma.abs())
+            room = probs.shape[-1] / 16 * 2 ** -23 * size + 2 ** -23 * ref.abs()
+        if bool((diff > room).any()):
+            raise AssertionError(f"gma aggregate {dtype}: {float((diff - room).max())} "
+                                 "past its room")
+        agg[str(dtype).split(".")[-1]] = dict(max_abs_err=float(diff.max()),
+                                              rel_err=rel_err(out, ref))
+    mf = torch.randn((B, N, A.DIM), generator=gen).to(torch.bfloat16).to(device)
+    gamma = torch.tensor([0.75], dtype=torch.bfloat16, device=device)
+
+    def library():
+        # the product alone, cuBLAS's bf16 GEMM over the same padded P
+        return torch.matmul(probs, torch.nn.functional.pad(v, (0, 0, 0, probs.shape[-1] - N)))
+
+    build_ms = cuda_ms(lambda: A.build_cuda(qk, probs, stats), iters=10, warmup=2)
+    agg_ms = cuda_ms(lambda: A.aggregate_cuda(probs, v, mf, gamma), iters=20, warmup=3)
+    library_ms = cuda_ms(library, iters=20, warmup=3)
+    plain_agg_ms = cuda_ms(lambda: A.aggregate_plain(probs, v, mf, gamma), iters=5, warmup=1)
+    del probs, stats, qk, v, mf
+    torch.cuda.empty_cache()
+
+    # the solve through the engine at 1080p: launches of each batch, the
+    # attention's buffers made, the replay bit-equal to the eager solve
+    model = gma_init(torch.Generator().manual_seed(0), gamma=1.0)
+    eng = RAFTFlow(model=model, device=device, iters=RAFT_ITERS)
+    Hf, Wf = 8 * H8, 8 * W8
+    rng = np.random.default_rng(0)
+    a = rng.integers(0, 256, (B, Hf, Wf, 3)).astype(np.float32)
+    b = np.roll(a, 4, axis=2)
+    solves = []
+    torch.cuda.reset_peak_memory_stats(device)
+    for n in range(2):
+        A.reset_launches()
+        made = trace.counters().get("flow.attention_made", 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flows = eng.compute_batch(a, b)
+        wall = time.perf_counter() - t0
+        launched = dict(A.launches)
+        if launched != {"attention_build": 1, "attention_aggregate": RAFT_ITERS}:
+            raise AssertionError(f"gma solve {n}: launched {launched}")
+        if not np.isfinite(flows).all():
+            raise AssertionError(f"gma solve {n}: non-finite flows")
+        solves.append(dict(flows=flows, wall_s=wall, launches=launched,
+                           attention_made=trace.counters().get("flow.attention_made", 0) - made))
+    if not np.array_equal(solves[0]["flows"], solves[1]["flows"]):
+        raise AssertionError("gma solve: the replay differs from the eager solve")
+    if [s["attention_made"] for s in solves] != [2, 0]:
+        raise AssertionError(f"gma solve: attention made {[s['attention_made'] for s in solves]}"
+                             " (eager solve and capture, then none)")
+    peak = torch.cuda.max_memory_allocated(device)
+    del eng
+    torch.cuda.empty_cache()
+
+    bound = counts.attention_bound_s(B, H8, W8, RAFT_ITERS)
+    build_bound = counts.attention_bound_s(B, H8, W8, 0)
+    by = ("operations" if bound == B * (1 + RAFT_ITERS) * counts.attention_flops(N)
+          / PEAK_BF16_FLOPS else "bytes")
+    summary = dict(shape=[B, H8, W8], top_weight_mean=top, p_rel_err=p_err,
+                   stats_err=stat_err, row_sum_err=row_sum, aggregate=agg,
+                   build_ms=build_ms, aggregate_ms=agg_ms, library_aggregate_ms=library_ms,
+                   plain_aggregate_ms=plain_agg_ms,
+                   solve_attention_ms=build_ms + RAFT_ITERS * agg_ms,
+                   bound_ms=1e3 * bound, bound_by=by, build_bound_ms=1e3 * build_bound,
+                   aggregate_bound_ms=1e3 * (bound - build_bound) / RAFT_ITERS,
+                   roofline_share=bound / (1e-3 * (build_ms + RAFT_ITERS * agg_ms)),
+                   solve_wall_s=[s["wall_s"] for s in solves],
+                   launches=[s["launches"] for s in solves],
+                   attention_made=[s["attention_made"] for s in solves],
+                   solve_peak_gib=peak / 2 ** 30)
+    print("[gma] " + json.dumps(summary), flush=True)
+    src = "deflicker_torch/csrc/gma_attention.cu"
+    return [
+        {"name": "gma_attention_build", "route": "cuda", "source": src,
+         "replaces": None, "launches": solves[1]["launches"]["attention_build"],
+         "max_abs_err": stat_err[0], "p_rel_err": p_err, "ms": build_ms,
+         "bound_ms": 1e3 * build_bound, "bound_by": by, "library_ms": None,
+         "per_shape": [summary]},
+        {"name": "gma_attention_aggregate", "route": "cuda", "source": src,
+         "replaces": None, "launches": solves[1]["launches"]["attention_aggregate"],
+         "max_abs_err": agg["bfloat16"]["max_abs_err"], "ms": agg_ms,
+         "plain_ms": plain_agg_ms, "library_ms": library_ms,
+         "bound_ms": 1e3 * (bound - build_bound) / RAFT_ITERS, "bound_by": by,
+         "per_shape": [summary]},
+    ]
 
 
 def make_clip(frames_dir: Path, seed: int = 0, T: int = CLIP[0]) -> None:
@@ -2767,10 +2952,19 @@ def main() -> int:
     device = torch.device("cuda:0")
     t0 = time.time()
     t_start = time.time()
-    logs = build.build(["imlp_chain", "corr_lookup"], verbose=True)
+    logs = build.build(["imlp_chain", "corr_lookup", "gma_attention"], verbose=True)
     print(f"[build] nvcc {time.time() - t0:.1f} s", flush=True)
     print_build(logs)
 
+    gma_kernels = phase_gma(device)
+    if "--only" in sys.argv[1:] and sys.argv[sys.argv.index("--only") + 1:][:1] == ["gma"]:
+        print(f"[total] wall {time.time() - t_start:.1f} s", flush=True)
+        print(smi)
+        print(json.dumps({"kernels": gma_kernels}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     rows = phase_chain_kernels(device)
     stash_rows = phase_stash_kernels(device)
     corr_rows = phase_corr_kernel(device)
@@ -2890,6 +3084,7 @@ def main() -> int:
             "one_video_x3_ms": sum(x["one_video_x3_ms"] for x in r),
             "per_shape": r,
         })
+    kernels += gma_kernels
     print(f"[total] wall {time.time() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

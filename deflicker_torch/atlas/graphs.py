@@ -83,7 +83,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..ops.cuda import corr_kernel, imlp_kernel
+from ..ops.cuda import attention_kernel, corr_kernel, imlp_kernel
 from ..utils import trace
 
 # eager steps before a fit's step function is captured
@@ -93,7 +93,8 @@ WARMUP_STEPS = 2
 # picks cuDNN's algorithms and sizes cuBLAS's workspace
 WARMUP_CALLS = 1
 # the launch counters a captured step accounts for
-COUNTERS = (imlp_kernel.launches, corr_kernel.launches)
+COUNTERS = (imlp_kernel.launches, corr_kernel.launches,
+            attention_kernel.launches)
 # states a kept `FitGraphs` holds: the most one job makes, its fit's and a
 # pretrain's for each of its two mappings (the least recently used goes
 # first: each holds a copy of its pack and its graphs' memory)

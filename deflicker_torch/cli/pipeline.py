@@ -5,7 +5,8 @@ Stages call each other as functions, and every stage reads and writes the
 reference's filesystem artifacts, so each stays independently runnable and
 idempotent.  The port runs the single-atlas path and, with `class_name`
 set, the dual-atlas path (foreground masks, four networks, texture export)
-on one device, with RAFT flow when a RAFT checkpoint is on disk.  A video
+on one device, with RAFT flow when a RAFT checkpoint is on disk (GMA flow
+when the checkpoint there is GMA's).  A video
 longer than `maximum_number_of_frames` takes the chunked path: equal chunks
 fit at once as one multi-video group (atlas/multifit.py), every frame is
 rendered, and stage 2 runs unbroken over the whole video.
@@ -87,8 +88,10 @@ def _logger(folder: Path, mesh: Optional[Mesh]):
 def make_flow_provider(cfg: PipelineConfig, device=None,
                        mesh: Optional[Mesh] = None):
     """RAFT on `device` when its checkpoint is on disk (the torch `.pth` or
-    the JAX package's converted file), else Farneback on the host.  With
-    `mesh`, RAFT runs on the rank's device and splits each pair batch."""
+    the JAX package's converted file), else Farneback on the host; a GMA
+    `.pth` at that path runs GMA (`flow/convert.py` reads the architecture
+    from its keys).  With `mesh`, the flow runs on the rank's device and
+    splits each pair batch."""
     ckpt = Path(cfg.ckpt_raft)
     for candidate in (ckpt, ckpt.with_suffix(".pth")):
         if candidate.exists():

@@ -3,8 +3,10 @@
     python -m deflicker_torch.cli.preprocess_flow --vid_name X
         [--root data/test/] [--max_long_edge 2000] [--model ckpt] [--gpu N]
 
-RAFT runs on `cuda:N` (it raises without a CUDA device).  Idempotent:
-existing `<vid>_flow/*.npy` pairs are reused.
+`--model` is a RAFT or GMA checkpoint: the flow model is the one its keys
+name (GMA's `gma-*.pth` has its attention's `att.to_qk`).  The flow runs
+on `cuda:N` (it raises without a CUDA device).  Idempotent: existing
+`<vid>_flow/*.npy` pairs are reused.
 """
 
 from __future__ import annotations
@@ -21,12 +23,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_long_edge", type=int, default=2000)
     p.add_argument("--model", type=str,
                    default="./pretrained_weights/raft-things.pth",
-                   help="RAFT checkpoint (.pth or converted)")
+                   help="RAFT or GMA checkpoint (.pth, or RAFT converted): "
+                        "its keys pick the model")
     p.add_argument("--gpu", type=int, default=0,
                    help="CUDA device index: runs on cuda:N")
     # extensions
     p.add_argument("--provider", choices=["raft", "farneback"], default="raft")
-    p.add_argument("--iters", type=int, default=20, help="RAFT GRU iterations")
+    p.add_argument("--iters", type=int, default=20,
+                   help="RAFT or GMA GRU iterations")
     return p
 
 
@@ -41,7 +45,8 @@ def main(argv=None, device=None) -> int:
                                     else device))
     else:
         if args.provider == "raft":
-            print(f"RAFT checkpoint {args.model} missing; using Farneback")
+            print(f"RAFT or GMA checkpoint {args.model} missing; using "
+                  "Farneback")
         provider = FarnebackFlow()
     paths = preprocess_optical_flow(Path(args.root) / args.vid_name, provider,
                                     max_long_edge=args.max_long_edge)

@@ -1,4 +1,4 @@
-"""Flow engine: batched RAFT pairs + the `.npy` flow cache contract.
+"""Flow engine: batched RAFT or GMA pairs + the `.npy` flow cache contract.
 
 The reference's flow preprocessing (src/preprocess_optical_flow.py +
 src/models/stage_1/raft_wrapper.py), as the JAX package runs it:
@@ -22,7 +22,11 @@ src/models/stage_1/raft_wrapper.py), as the JAX package runs it:
     back, through pinned host memory (`_Staging`, `RAFTFlow._download`),
     which the DMA engines read and write at the link's rate; pageable
     memory goes through the CUDA runtime's own small bounce buffers a
-    chunk at a time, with the host thread blocked and the card idle.
+    chunk at a time, with the host thread blocked and the card idle;
+  * the same engine, graphs and staging solve GMA (models/gma.py) when
+    the model, or the checkpoint's keys, is GMA: its attention is made
+    inside the solve, so a captured solve's comes from the graphs' shared
+    pool, as the correlation's buffers do.
 """
 
 from __future__ import annotations
@@ -126,16 +130,17 @@ class _Solve:
 
 class RAFTFlow:
     """RAFT-based provider (the reference's RAFTWrapper role) on `device`
-    (CUDA unless the caller names another; raises without CUDA).  With
-    `mesh` (on its rank's device) every rank calls `compute_batch` with the
-    same pairs, solves its block of them and gets them all back.
+    (CUDA unless the caller names another; raises without CUDA).  The
+    model is a RAFT or a GMA (`model`, or what `checkpoint`'s keys name).
+    With `mesh` (on its rank's device) every rank calls `compute_batch`
+    with the same pairs, solves its block of them and gets them all back.
 
     On the card each solve is a CUDA graph (`graphs`, an
     `InferenceGraphs`), keyed by what it bakes in: the batch, the padded
-    size, dtype, iterations, the correlation mode and body.  A key's first
-    batch is solved eagerly and the key is captured right after it, so a
-    shape seen once (a run's tail batch) costs one capture it never
-    replays.  `capture=False` solves eagerly on the card (the comparison
+    size, the model, dtype, iterations, the correlation mode and body.  A
+    key's first batch is solved eagerly and the key is captured right
+    after it, so a shape seen once (a run's tail batch) costs one capture
+    it never replays.  `capture=False` solves eagerly on the card (the comparison
     the card's tests and chip_smoke make)."""
 
     def __init__(self, checkpoint: Optional[str | Path] = None,
@@ -161,7 +166,8 @@ class RAFTFlow:
         self.iters = iters
         self.dtype = dtype
         self.corr_mode = corr_mode
-        self.graphs = InferenceGraphs(self.device, "RAFT solves", capture)
+        self.graphs = InferenceGraphs(self.device, f"{model.NAME} solves",
+                                      capture)
         self._said_empty = False
         self._staging = (_Staging(self.device) if self.device.type == "cuda"
                          else None)
@@ -180,7 +186,8 @@ class RAFTFlow:
                                  (Hp // 8) * (Wp // 8))
         # the body is read once a solve: a switch selects another graph
         body = select_body() if mode == "kernel" else None
-        key = (B, Hp, Wp, self.dtype, self.iters, mode, body)
+        key = (B, Hp, Wp, self.model.NAME, self.dtype, self.iters, mode,
+               body)
         e = self.graphs.entry(key, lambda: _Solve(
             self.model, B, Hp, Wp, self.iters, self.dtype, mode, self.device))
         e.x1.copy_(x1)
@@ -245,7 +252,7 @@ class RAFTFlow:
                 if not self._said_empty:
                     from ..atlas.graphs import say_uncaptured
 
-                    say_uncaptured("RAFT solves",
+                    say_uncaptured(f"{self.model.NAME} solves",
                                    "this rank's block of pairs is empty")
                     self._said_empty = True
                 flow = torch.zeros((0, *padder.padded_hw, 2),

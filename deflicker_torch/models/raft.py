@@ -29,7 +29,8 @@ enumerate the X offset on the OUTER axis — channel p*(2r+1)+q samples
 The correlation lookup has four modes (`raft_flow`): the materialized
 all-pairs volume, the online gather, the hand-written CUDA kernel
 (ops/cuda/corr_kernel.py) and `auto`.  Multi-GPU sharding of the pair batch
-is not part of this module.
+is not part of this module.  GMA (models/gma.py) is RAFT with a wider GRU
+and an attention over the context features; `raft_flow` solves both.
 """
 
 from __future__ import annotations
@@ -178,14 +179,17 @@ class FlowHead(nn.Module):
 
 class BasicUpdateBlock(nn.Module):
     """update.py:114-139, with the mask head apart from the step so
-    `raft_flow` runs it once, on the final GRU state.  NHWC in and out."""
+    `raft_flow` runs it once, on the final GRU state.  NHWC in and out.
+    `gru_input` is the GRU's input width (RAFT's context and motion
+    features; GMA adds the aggregated motion, models/gma.py)."""
 
     def __init__(self, corr_levels: int = CORR_LEVELS,
-                 corr_radius: int = CORR_RADIUS):
+                 corr_radius: int = CORR_RADIUS,
+                 gru_input: int = CONTEXT_DIM + HIDDEN_DIM):
         super().__init__()
         self.encoder = BasicMotionEncoder(
             corr_levels * (2 * corr_radius + 1) ** 2)
-        self.gru = SepConvGRU(HIDDEN_DIM, CONTEXT_DIM + HIDDEN_DIM)
+        self.gru = SepConvGRU(HIDDEN_DIM, gru_input)
         self.flow_head = FlowHead(HIDDEN_DIM, 256)
         self.mask = nn.Sequential(nn.Conv2d(HIDDEN_DIM, 256, 3, padding=1),
                                   nn.ReLU(),
@@ -204,20 +208,30 @@ class BasicUpdateBlock(nn.Module):
 
 class RAFT(nn.Module):
     """The three learned components (raft.py:58-60, full-size config).  The
-    flow solve is `raft_flow`; the module stays in eval mode."""
+    flow solve is `raft_flow`; the module stays in eval mode.  `NAME` names
+    the model in the flow engine's graph keys and messages."""
 
-    def __init__(self):
+    NAME = "RAFT"
+
+    def __init__(self, update_block: Optional[nn.Module] = None):
         super().__init__()
         self.fnet = BasicEncoder(256, "instance")
         self.cnet = BasicEncoder(HIDDEN_DIM + CONTEXT_DIM, "batch")
-        self.update_block = BasicUpdateBlock()
+        self.update_block = (BasicUpdateBlock() if update_block is None
+                             else update_block)
         self.eval()
 
     def train(self, mode: bool = True):
         if mode:
-            raise RuntimeError("RAFT is inference only here: batch norm "
-                               "always runs on its running statistics")
+            raise RuntimeError(f"{self.NAME} is inference only here: batch "
+                               "norm always runs on its running statistics")
         return super().train(False)
+
+    def update_step(self, inp: torch.Tensor):
+        """The GRU step of one solve, `(net, inp, corr, flow) -> (net,
+        delta)`, given the context features `inp`: RAFT's update block.
+        (GMA builds its attention here, models/gma.py.)"""
+        return self.update_block
 
 
 # ---------------------------------------------------------------------------
@@ -351,6 +365,11 @@ def raft_flow(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
     plain twin for CPU tensors); 'auto' = the kernel on a CUDA device,
     and on the CPU materialized while the pyramid stays under ~2 GB, else
     online.
+
+    `model` is a RAFT or a GMA (models/gma.py): after the context network
+    `model.update_step` gives the GRU step of the solve, GMA's with its
+    attention built once from the context features (on a CUDA device
+    through the attention kernels in every correlation mode).
     """
     p_dtype = model.fnet.conv1.weight.dtype
     if p_dtype != dtype:
@@ -394,6 +413,7 @@ def raft_flow(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
     cnet = model.cnet(im1)
     net = torch.tanh(cnet[..., :HIDDEN_DIM])
     inp = F.relu(cnet[..., HIDDEN_DIM:])
+    step = model.update_step(inp)
 
     coords0 = coords_grid(H8, W8, device=fmap1.device)[None].expand(
         B, H8, W8, 2)
@@ -401,8 +421,7 @@ def raft_flow(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
     for _ in range(iters):
         corr = lookup(coords1)
         flow = coords1 - coords0
-        net, delta = model.update_block(net, inp, corr.to(dtype),
-                                        flow.to(dtype))
+        net, delta = step(net, inp, corr.to(dtype), flow.to(dtype))
         coords1 = coords1 + delta.float()
 
     flow_low = coords1 - coords0

@@ -54,7 +54,7 @@ def test_package_data_ships_every_source_and_header():
     globs = conf["tool"]["setuptools"]["package-data"]["deflicker_torch"]
     package = root / "deflicker_torch"
     names = sorted(p.stem for p in build.CSRC.glob("*.cu"))
-    assert names == ["corr_lookup", "imlp_chain"]
+    assert names == ["corr_lookup", "gma_attention", "imlp_chain"]
     for name in names:
         for path in build.sources(name):
             rel = path.relative_to(package).as_posix()

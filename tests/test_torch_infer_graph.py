@@ -3,8 +3,8 @@
 `FakeInferenceGraphs` stands in for `torch.cuda.CUDAGraph`: its capture
 runs the step's Python as the card's capture does (the launch counters
 count) while the tensors the step reads and writes come out unchanged,
-and its replays run the step with the counters frozen, as a real replay
-leaves them.  So the warm-up, capture, replay, counter accounting and keys
+and its replays run the step with the launch counters and the trace's
+counters frozen, as a real replay leaves them.  So the warm-up, capture, replay, counter accounting and keys
 of `RAFTFlow.compute_batch` and `FilterEngine.refine` / `run` /
 `run_multi` run here as on the card; `refine_sequence_multi` is held to
 the JAX package's."""
@@ -30,6 +30,7 @@ from deflicker_torch.models import raft as traft
 from deflicker_torch.models.refine import TransformNet, transformnet_init
 from deflicker_torch.models.unet import unet_init
 from deflicker_torch.ops.cuda import corr_kernel
+from deflicker_torch.utils import trace
 from deflicker_torch.utils.convert import load_stage2_module
 
 torch.set_num_threads(2)
@@ -45,9 +46,12 @@ class FakeGraph:
 
     def replay(self):
         frozen = [dict(c) for c in tgraphs.COUNTERS]
+        counted = trace.counters()
         self.fn()
         for c, saved in zip(tgraphs.COUNTERS, frozen):
             c.update(saved)
+        trace._counters.clear()
+        trace._counters.update(counted)
 
 
 class FakeInferenceGraphs(tgraphs.InferenceGraphs):

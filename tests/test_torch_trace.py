@@ -312,3 +312,53 @@ def test_a_served_job_reports_its_graph_counts():
                                "capture_s": 0.25}
     assert again["graphs"] == {"state_loaded": 1, "capture_s": 0.25}
     assert first["ok"] and first["psnr"] == 30.0
+
+
+def _gma(capture):
+    from deflicker_torch.flow import RAFTFlow
+    from deflicker_torch.models.gma import gma_init
+
+    model = gma_init(torch.Generator().manual_seed(0), gamma=1.0)
+    eng = RAFTFlow(model=model, iters=2, dtype=torch.float32, device="cpu",
+                   corr_mode="kernel", capture=False)
+    if capture:
+        eng.graphs = FakeInferenceGraphs(what="GMA solves")
+    return eng
+
+
+def test_an_eager_gma_solve_logs_its_attention_inside_the_solve():
+    """An eager GMA batch logs `flow/attention` once, inside `flow/solve`,
+    and a RAFT batch logs none; off, nothing is logged."""
+    eng = _gma(capture=False)
+    flows = eng.compute_batch(*_pairs(1, 0))
+    assert trace.spans() == []
+    with trace.recording():
+        np.testing.assert_array_equal(eng.compute_batch(*_pairs(1, 0)), flows)
+        _raft(capture=False).compute_batch(*_pairs(1, 0))
+    logged = [(n, par) for n, par, _, _ in trace.spans()]
+    assert logged.count(("flow/attention", "flow/solve")) == 1
+    assert [n for n, _ in logged].count("flow/attention") == 1
+
+
+def test_gma_attention_counters_grow_once_per_graph_key():
+    """Through the stand-in graphs, two batch shapes solved three times
+    each: `flow.attention_made` grows at each key's first, eager solve and
+    at its capture (P and its row statistics made inside the solve, where a
+    capture takes them from the graphs' pool) and never in its replays,
+    and `flow.attention_bytes` holds their bytes (an f32 solve on the CPU:
+    P f32, N x N a direction, and the f32 row statistics).  A RAFT engine
+    makes none."""
+    eng = _gma(capture=True)
+    grown = []
+    for B in (2, 1, 2, 1, 2, 1):
+        before = trace.counters().get("flow.attention_made", 0)
+        eng.compute_batch(*_pairs(B, B))
+        grown.append(trace.counters().get("flow.attention_made", 0) - before)
+    assert grown == [2, 2, 0, 0, 0, 0]
+    N = 8 * 8                                       # 64 x 64 frames
+    nbytes = [B * N * N * 4 + B * N * 8 for B in (2, 1)]
+    assert trace.counters()["flow.attention_bytes"] == 2 * sum(nbytes)
+    assert eng.graphs.captured == 2
+    trace.clear()
+    _raft(capture=True).compute_batch(*_pairs(2, 0))
+    assert "flow.attention_made" not in trace.counters()
